@@ -1,2 +1,2 @@
-"""Welch PSD scanning and scan-peak picking (detection by template
-correlation is not ported yet)."""
+"""Welch PSD scanning, scan-peak picking and sonde-type detection by
+template correlation."""

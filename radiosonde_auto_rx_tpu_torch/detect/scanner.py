@@ -1,0 +1,144 @@
+"""Sonde detector: IQ conditioning + template-bank correlation.
+
+Port of ``radiosonde_auto_rx_tpu/detect/scanner.py`` (``LPIQ_BW``,
+``LPFM_BW``, ``SondeDetector``) as the station uses it: the full-rate
+pass, without the half-rate ``Prescreen``.  Per IF bandwidth class
+(6/12/22/200 kHz, reference scan/dft_detect.c:148-149): an IF lowpass
+over the re/im planes, one FM discriminator, an FM-audio lowpass, then
+the class's templates correlated against the stream — batched over
+channels, float32 throughout (the reference's ``stream_dtype`` is
+float32 off the TPU).
+"""
+
+import numpy as np
+import torch
+
+from radiosonde_auto_rx_tpu_torch.demod.fsk import iq_planes
+from radiosonde_auto_rx_tpu_torch.detect.correlator import detect_types
+from radiosonde_auto_rx_tpu_torch.detect.templates import (
+    TEMPLATES, build_template_bank)
+from radiosonde_auto_rx_tpu_torch.ops.fir import (
+    design_lowpass, fir_filter_block)
+from radiosonde_auto_rx_tpu_torch.ops.fm import (
+    FM_GAIN, fm_discriminate_planes_mixed)
+
+# IF lowpass bandwidth per class (dft_detect.c:148-149)
+LPIQ_BW = (6e3, 12e3, 22e3, 200e3)
+# FM-audio lowpass (dft_detect.c:148: 4k narrow, 10k wide)
+LPFM_BW = (4e3, 10e3)
+
+TODO_PRESCREEN = ("the half-rate Prescreen and analyze(screen=True) "
+                  "(ROADMAP.md queue 1: detection prescreen)")
+
+
+class SondeDetector:
+    """Detect sonde type(s) in IQ channels at rate ``fs`` on ``device``.
+
+    Usage: ``SondeDetector(fs, device=dev).detect(iq)`` -> list of
+    Detection (per channel when input is batched)."""
+
+    def __init__(self, fs: int = 48000, specs=None, taps: int = 97,
+                 prescreen: bool = False, *, device):
+        if prescreen:
+            raise NotImplementedError(TODO_PRESCREEN)
+        self.fs = fs
+        self.device = torch.device(device)
+        specs = TEMPLATES if specs is None else specs
+
+        def on(a):
+            return torch.from_numpy(np.asarray(a, np.float32)).to(
+                self.device)
+
+        # group templates by IF bandwidth class present at this rate:
+        # (h_if, h_fm, specs, bank, lens); a class wider than fs takes
+        # no filters
+        self.classes = []
+        for cls in sorted({s.lp_iq for s in specs}):
+            bw = LPIQ_BW[cls]
+            cls_specs = [s for s in specs if s.lp_iq == cls]
+            bank, lens, _ = build_template_bank(fs, cls_specs)
+            lens = tuple(int(v) for v in lens)
+            if bw >= fs:
+                self.classes.append((None, None, cls_specs, on(bank), lens))
+                continue
+            h_if = design_lowpass(bw / 2 / fs, taps)
+            lpfm = LPFM_BW[1] if any(s.sps > 6000 for s in cls_specs) \
+                else LPFM_BW[0]
+            h_fm = design_lowpass(lpfm / fs, taps)
+            self.classes.append((on(h_if), on(h_fm), cls_specs, on(bank),
+                                 lens))
+        filt = [cl[0] for cl in self.classes if cl[0] is not None]
+        self._h_if = torch.stack(filt) if filt else None        # [F, K]
+        # FM audio lowpasses grouped by distinct taps: (h_fm, classes)
+        groups = {}
+        for i, cl in enumerate(self.classes):
+            if cl[1] is not None:
+                key = cl[1].cpu().numpy().tobytes()
+                groups.setdefault(key, (cl[1], []))[1].append(i)
+        self._fm_groups = list(groups.values())
+
+    def _condition(self, x):
+        """x: [C, 2, T] float32 planes -> list of FM streams [C, T] per
+        class: all IF lowpasses as one filter-bank pass over the stacked
+        re/im rows, one discriminator over the class-stacked planes, then
+        the FM lowpasses grouped by distinct taps."""
+        C, _, T = x.shape
+        x = x.float()
+        out = [None] * len(self.classes)
+        filt_idx = [i for i, cl in enumerate(self.classes)
+                    if cl[0] is not None]
+        if filt_idx:
+            y = fir_filter_block(x.reshape(C * 2, T), self._h_if) \
+                .reshape(C, 2, len(filt_idx), T)
+            fmf = fm_discriminate_planes_mixed(y[:, 0], y[:, 1])  # [C,F,T]
+            for fi, i in enumerate(filt_idx):
+                out[i] = fmf[:, fi]
+        for i, cl in enumerate(self.classes):
+            if cl[0] is None:
+                out[i] = fm_discriminate_planes_mixed(x[:, 0], x[:, 1])
+        for h_fm, idxs in self._fm_groups:
+            sub = torch.stack([out[i] for i in idxs],
+                              dim=1).reshape(C * len(idxs), T)
+            flt = fir_filter_block(sub, h_fm[None, :])[:, 0]
+            flt = flt.reshape(C, len(idxs), T)
+            for k, i in enumerate(idxs):
+                out[i] = flt[:, k]
+        return out
+
+    def detect(self, iq, max_det: int = 1, dc_block: bool = True,
+               prescreen: bool | None = None):
+        """iq: complex [T]/[C,T] or planes [C,2,T] (host data or a
+        tensor) -> detections.
+
+        Returns a list of Detection for 1-D input, else a list per
+        channel.  Frequency offsets are in Hz (df = fs*dc/(2*FM_GAIN),
+        the discriminator's normalization, demod/mod/demod_mod.c:298).
+        ``prescreen=True`` (the half-rate reject) is not ported."""
+        if prescreen:
+            raise NotImplementedError(TODO_PRESCREEN)
+        single = (iq.dim() if isinstance(iq, torch.Tensor)
+                  else np.ndim(iq)) == 1
+        x = iq_planes(iq, self.device)
+        if dc_block:
+            x = x - torch.mean(x, dim=-1, keepdim=True) * 0.98
+        merged = self._detect_full(x, max_det)
+        return merged[0] if single else merged
+
+    def _detect_full(self, x, max_det: int):
+        """Full-rate 4-stream multi-template pass on [C, 2, T] planes."""
+        streams = self._condition(x)
+        C = x.shape[0]
+        merged = [[] for _ in range(C)]
+        for fm, (_, _, cls_specs, bank, lens) in zip(streams,
+                                                     self.classes):
+            dets = detect_types(fm, bank, lens, cls_specs,
+                                fm_gain_hz=self.fs / (2.0 * FM_GAIN),
+                                max_det=0, fs=self.fs,
+                                wideband=self.fs > 50000)
+            for c in range(C):
+                merged[c].extend(dets[c])
+        for c in range(C):
+            merged[c].sort(key=lambda d: d.score, reverse=True)
+            if max_det:
+                merged[c] = merged[c][:max_det]
+        return merged

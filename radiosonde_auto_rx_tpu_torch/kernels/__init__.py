@@ -1,8 +1,10 @@
 """Build, load and count the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-ONE shared library with a plain C interface, loaded with ``ctypes``
-(no PyTorch headers in the build, so it takes seconds, not minutes).
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` process per source, all started together, and the objects are
+linked into ONE shared library with a plain C interface, loaded with
+``ctypes`` (no PyTorch headers in the build, so it takes seconds, not
+minutes).
 The library lands in ``build/kernels/`` at the repository root, named
 by a hash of the sources and flags: an edited source rebuilds on first
 use, an unchanged one is reused.  A failed build raises with nvcc's
@@ -30,7 +32,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,10 +48,12 @@ SIGNATURES = {
     # x, s_outer, s_seg, s_plane, nseg, rows, win, tw, out, n, shift,
     # device, stream
     "rsx_fft_abs2": [_P, _L, _L, _L, _I, _I, _P, _P, _P, _I, _I, _I, _P],
+    # x, s_row, s_plane, rows, win (or NULL), tw, out, n, device, stream
+    "rsx_fft_planes": [_P, _L, _L, _I, _P, _P, _P, _I, _I, _P],
     "rsx_error_string": [_I],
 }
 
-launches = {"freq_est_sf": 0, "fft_abs2": 0}
+launches = {"freq_est_sf": 0, "fft_abs2": 0, "fft": 0}
 build_log = {}                 # "ptxas": nvcc's -Xptxas -v report
 
 _lock = threading.Lock()
@@ -88,17 +92,35 @@ def library_path() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-           *[str(s) for s in _sources()]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, lib)
-    build_log["ptxas"] = res.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            obj = str(Path(tmp) / f"{src.stem}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
+                   "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        logs = []
+        for cmd, _, proc in jobs:
+            out, err = proc.communicate()
+            if proc.returncode:
+                for _, _, other in jobs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}{err}")
+            logs.append(err)
+        so = str(Path(tmp) / "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", so,
+               *[obj for _, obj, _ in jobs]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(so, lib)
+    build_log["ptxas"] = "".join(logs)
     return lib
 
 

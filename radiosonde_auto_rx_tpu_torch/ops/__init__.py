@@ -1,2 +1,2 @@
 """DSP primitives on float32 ``[..., 2, T]`` planes, plus the wrappers of
-the two hand-written kernels (``fsk_sf``: K1, ``fft``: K2)."""
+the three hand-written kernels (``fsk_sf``: K1, ``fft``: K2 and K3)."""

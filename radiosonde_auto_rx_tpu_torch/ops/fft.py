@@ -1,13 +1,22 @@
-"""K2: fused windowed |DFT|^2 (+ fftshift) over rows of IQ planes.
+"""K2 and K3: the windowed DFT kernels over rows of IQ planes.
 
-Port of ``radiosonde_auto_rx_tpu/ops/pallas_fft.py::fft_abs2``.  The
-Welch PSD (``detect/psd.py``) sends every segment through here.
+Port of ``radiosonde_auto_rx_tpu/ops/pallas_fft.py``:
 
-``fft_abs2(x, win, shift)`` dispatches on where ``x`` lies: a CPU tensor
-goes to the plain twin ``fft_abs2_ref`` (the matmul form of
-``pallas_fft._direct_xla`` plus |.|^2 and the roll); a CUDA tensor
-launches the hand-written kernel ``csrc/fft_abs2.cu`` — there is no
-path from a CUDA tensor to the twin.
+* ``fft_abs2(x, win, shift)`` (K2): fused |DFT(win·x)|^2 (+ fftshift).
+  The Welch PSD (``detect/psd.py``) sends every segment through here.
+* ``fft(x, win, method)`` (K3): the windowed complex DFT with re/im
+  planes out.  N <= 1024 is one direct DFT (``_direct(abs2=False)`` in
+  the reference); above, ``method="auto"`` is the plain matmul the
+  reference leaves to XLA (``_direct_xla``), and ``method="four-step"``
+  is the Bailey factorization N = 128·N2, whose two DFT stages are the
+  kernel (the reference's ``_cmatmul_pallas``) and whose twiddle and
+  transposes are torch ops.
+
+Each kernel wrapper dispatches on where its input lies: a CPU tensor
+goes to the plain twin (``fft_abs2_ref``, ``fft_ref``: the matmul form
+of ``_direct_xla``); a CUDA tensor launches the hand-written kernel
+(``csrc/fft_abs2.cu``, ``csrc/fft_planes.cu``) — there is no path from a
+CUDA tensor to the twin.
 """
 
 from functools import lru_cache
@@ -17,7 +26,8 @@ import torch
 
 from radiosonde_auto_rx_tpu_torch import kernels
 
-MAX_N = 2048          # the kernel stages 4*N floats in shared memory
+MAX_N = 2048          # the kernels stage 4*N floats in shared memory
+DIRECT_MAX = 1024     # fft: one direct DFT up to here (reference _DIRECT_MAX)
 
 
 @lru_cache(maxsize=8)
@@ -103,3 +113,123 @@ def fft_abs2(x, win, shift: bool = True):
     if x.device.type != "cuda":
         raise ValueError(f"fft_abs2: no kernel for device {x.device}")
     return _launch(x, win, shift)
+
+
+# ---------------------------------------------------------------------- #
+# K3: fft
+
+
+def _split(n: int):
+    """N = N1 * N2 with N1 = min(128, N) (reference ``_split``)."""
+    n1 = min(128, n)
+    return n1, n // n1
+
+
+@lru_cache(maxsize=8)
+def _twiddle(n: int, device: torch.device):
+    """Tw[k1, n2] = exp(-2πi k1 n2 / n) as (cos, -sin) planes [N1, N2]."""
+    n1, n2 = _split(n)
+    ang = 2.0 * np.pi * np.outer(np.arange(n1), np.arange(n2)) / n
+    return (torch.from_numpy(np.cos(ang).astype(np.float32)).to(device),
+            torch.from_numpy((-np.sin(ang)).astype(np.float32)).to(device))
+
+
+def _planes_in(x, win):
+    """[B, 2, N] planes or complex [B, N] -> (float32 [B, 2, N], window
+    [N] or None, N)."""
+    if x.is_complex():
+        x = torch.stack([x.real, x.imag], dim=1)
+    elif x.dim() != 3 or x.shape[1] != 2:
+        raise ValueError(f"expect [B, 2, N] planes or complex [B, N], got "
+                         f"{tuple(x.shape)}")
+    x = x.float()
+    n = x.shape[-1]
+    if n & (n - 1):
+        raise ValueError(f"FFT size must be a power of two, got {n}")
+    w = None if win is None else torch.as_tensor(
+        win, dtype=torch.float32, device=x.device).reshape(n)
+    return x, w, n
+
+
+def fft_ref(x, win=None):
+    """Plain twin: (win·x) @ W with W the [N, N] DFT matrix, as four real
+    products.  x: [B, 2, N] planes or complex [B, N] -> [B, 2, N]
+    float32, bins in natural order."""
+    x, w, n = _planes_in(x, win)
+    wc, ws = _dft_mat(n, x.device)
+    xr, xi = x[:, 0], x[:, 1]
+    if w is not None:
+        xr, xi = xr * w, xi * w
+    yr = xr @ wc - xi @ ws
+    yi = xr @ ws + xi @ wc
+    return torch.stack([yr, yi], dim=1)
+
+
+def _launch_planes(x, win):
+    """K3 on [R, 2, n] float32 planes (last axis contiguous) -> [R, 2, n]."""
+    R, _, n = x.shape
+    if n & (n - 1) or not 2 <= n <= MAX_N:
+        raise ValueError(f"fft kernel: N={n} must be a power of two in "
+                         f"[2, {MAX_N}]")
+    if x.stride(-1) != 1:
+        raise ValueError("fft kernel: the last axis must be contiguous")
+    if win is not None:
+        win = win.contiguous()
+    tw = _twiddles(n, x.device)
+    out = torch.empty((R, 2, n), dtype=torch.float32, device=x.device)
+    if R:
+        lib = kernels.library()
+        err = lib.rsx_fft_planes(
+            x.data_ptr(), x.stride(0), x.stride(1), R,
+            None if win is None else win.data_ptr(), tw.data_ptr(),
+            out.data_ptr(), n, x.device.index or 0,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        kernels.check(err, "fft")
+        kernels.launches["fft"] += 1
+    return out
+
+
+def _dft_rows(x, win):
+    """Direct windowed DFT of [R, 2, n] rows: the twin on the CPU, K3 on
+    a CUDA tensor."""
+    if x.device.type == "cpu":
+        return fft_ref(x, win)
+    if x.device.type != "cuda":
+        raise ValueError(f"fft: no kernel for device {x.device}")
+    return _launch_planes(x, win)
+
+
+def _four_step(x, n: int):
+    """X[k1 + N1 k2] = sum_{n2} Tw[k1,n2] F2[n2,k2] sum_{n1} x[N2 n1 + n2]
+    F1[n1,k1]: two DFT stages (lengths N1 and N2) with the twiddle and
+    re-layouts between them.  x: windowed [B, 2, n] -> [B, 2, n]."""
+    b = x.shape[0]
+    n1, n2 = _split(n)
+    # stage 1: contract over n1.  rows (b, n2), lanes n1
+    a = x.reshape(b, 2, n1, n2).permute(0, 3, 1, 2).reshape(b * n2, 2, n1)
+    s1 = _dft_rows(a, None).reshape(b, n2, 2, n1)          # lanes k1
+    twc, tws = _twiddle(n, x.device)
+    twc_t, tws_t = twc.T[None], tws.T[None]                 # [1, n2, n1]
+    br, bi = s1[:, :, 0], s1[:, :, 1]
+    c = torch.stack([br * twc_t - bi * tws_t,
+                     br * tws_t + bi * twc_t], dim=2)       # [b, n2, 2, n1]
+    # stage 2: contract over n2.  rows (b, k1), lanes n2
+    c = c.permute(0, 3, 2, 1).reshape(b * n1, 2, n2)
+    d = _dft_rows(c, None)                                  # lanes k2
+    # X[k1 + N1 k2]: lanes k2 are the major digit
+    return d.reshape(b, n1, 2, n2).permute(0, 2, 3, 1).reshape(b, 2, n)
+
+
+def fft(x, win=None, method: str = "auto"):
+    """Batched complex FFT.  x: [B, 2, N] float32 planes or complex
+    [B, N]; optional window [N].  Returns [B, 2, N] float32 planes, bins
+    in natural order.  ``method``: "auto" (one direct DFT for N <= 1024,
+    the plain matmul above) or "four-step" (the factored path for
+    N > 1024)."""
+    x, w, n = _planes_in(x, win)
+    if n <= DIRECT_MAX:
+        return _dft_rows(x, w)
+    xw = x if w is None else x * w
+    if method == "four-step":
+        return _four_step(xw, n)
+    return fft_ref(xw)

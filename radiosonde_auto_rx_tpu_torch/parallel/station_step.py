@@ -4,8 +4,10 @@ Port of the single-device parts of
 ``radiosonde_auto_rx_tpu/parallel/station_step.py::ShardedStationStep``:
 ``analyze`` (channelize + sparse Welch PSD, the ``n_t == 1`` branch) and
 the fused ``steady_step`` (analyze + recentered extraction of off-grid
-task rows + per-type demod of the active channels).  There is no mesh:
-multi-device sharding, the prescreen (``screen=True``), ``confirm`` and
+task rows + per-type demod of the active channels), and the full-rate
+confirmation of scan candidates (``confirm`` on the device, then the
+host decision loop ``decide_confirmed``).  There is no mesh:
+multi-device sharding, the prescreen (``screen=True``) and
 ``route_demod`` are not ported yet.
 """
 
@@ -13,24 +15,33 @@ import numpy as np
 import torch
 
 from radiosonde_auto_rx_tpu_torch.demod.fsk import fsk_demod_stream
+from radiosonde_auto_rx_tpu_torch.detect.correlator import (
+    _correlate_peaks_exact, decide_from_peaks)
 from radiosonde_auto_rx_tpu_torch.detect.psd import _welch
+from radiosonde_auto_rx_tpu_torch.detect.scanner import (
+    TODO_PRESCREEN, SondeDetector)
 from radiosonde_auto_rx_tpu_torch.ops.channelizer import (
     _channelize, _extract, pfb_prototype)
+from radiosonde_auto_rx_tpu_torch.ops.fm import FM_GAIN
 from radiosonde_auto_rx_tpu_torch.ops.resample import resample_planes
 from radiosonde_auto_rx_tpu_torch.station.chains import (
-    CHAIN_TABLE, TODO_AFSK, TODO_DETECT, TODO_WIDE, _demod_cfg)
+    CHAIN_TABLE, TODO_AFSK, TODO_WIDE, _demod_cfg)
 
 
 class StationStep:
-    """Channelize + PSD + steady demod for one channel geometry on
-    ``device``."""
+    """Channelize + PSD + steady demod + candidate confirmation for one
+    channel geometry on ``device``."""
 
     def __init__(self, device, n_chan: int = 50, fs_ch: int = 48000,
-                 nfft: int = 2048):
+                 nfft: int = 2048, conf_capacity: int = 2):
         self.device = torch.device(device)
         self.n_chan = int(n_chan)
         self.fs_ch = int(fs_ch)
         self.nfft = int(nfft)
+        self.conf_cap = int(conf_capacity)
+        # full-rate confirmation machinery (its own prescreen is not
+        # ported; the station confirms scan candidates exactly)
+        self.detector = SondeDetector(self.fs_ch, device=self.device)
         self.taps = torch.from_numpy(pfb_prototype(self.n_chan)).to(
             self.device)
         self.pfb_p = int(self.taps.shape[0]) // self.n_chan
@@ -48,7 +59,7 @@ class StationStep:
         psd [B, nfft] (sparse Welch, one nfft window per 4*nfft), None).
         The prescreen bank (``screen=True``) is not ported."""
         if screen:
-            raise NotImplementedError(TODO_DETECT)
+            raise NotImplementedError(TODO_PRESCREEN)
         chf = self._channels(wide)
         psd = _welch(wide, self.nfft, hop=4 * self.nfft)
         return chf, psd, None
@@ -110,3 +121,68 @@ class StationStep:
             soft, bits, stats, _ = fsk_demod_stream(cfg, x, self.device)
             outs[name] = (soft, bits, stats)
         return chf, psd, outs
+
+    # ------------------------------------------------------------------ #
+
+    @property
+    def n_conf_slots(self) -> int:
+        return self.conf_cap
+
+    def confirm(self, channels, slot_cids):
+        """Full-rate confirmation pass on candidate channels.
+
+        channels: [C, 2, Tc] tensor; slot_cids: [S] global channel ids of
+        the candidates.  The single-device body of the reference's
+        sharded ``confirm``, without its pad slots (the station passes
+        only real candidates): DC block, the detector's conditioning
+        and, per bandwidth class, the exact peak search.  Returns
+        dict(streams [n_classes, S, Tc], peaks [(val, ipk, dc, xm) per
+        class, each [S, K_cls] ([S] for xm)]) for the host decision loop
+        (``decide_confirmed``)."""
+        det = self.detector
+        mine = channels.index_select(0, torch.from_numpy(
+            np.asarray(slot_cids, np.int64)).to(channels.device))
+        # same DC block as SondeDetector.detect's entry
+        mine = mine - torch.mean(mine, dim=-1, keepdim=True) * 0.98
+        streams = det._condition(mine)                # per class [S, T]
+        peaks = [_correlate_peaks_exact(fm, bank, lens)
+                 for fm, (_, _, _, bank, lens) in zip(streams, det.classes)]
+        return dict(streams=torch.stack(streams), peaks=peaks)
+
+    def decide_confirmed(self, conf, slot_cids, max_det: int = 1):
+        """Host decision loop over ``confirm`` outputs: the logic of
+        ``SondeDetector._detect_full`` (threshold, headcmp, M10/M20 +
+        iMet disambiguation, score sort).
+
+        Returns {global channel id: [Detection, ...]}."""
+        det = self.detector
+        slot_cids = np.asarray(slot_cids)
+        S = len(slot_cids)
+        merged = [[] for _ in range(S)]
+        streams = conf["streams"]
+        # headcmp + subtype disambiguation read the same conditioned
+        # stream up to 3x per candidate: fetch each row once
+        _cache = {}
+
+        def _chan(ci, c):
+            key = (ci, int(c))
+            if key not in _cache:
+                _cache[key] = streams[ci, c].cpu().numpy()
+            return _cache[key]
+
+        for ci, ((_, _, cls_specs, _, lens), pk) in enumerate(
+                zip(det.classes, conf["peaks"])):
+            val, ipk, dc, xm = (v.cpu().numpy() for v in pk)
+            dets = decide_from_peaks(
+                val, ipk, dc, xm, cls_specs, np.asarray(lens),
+                chan=lambda c, ci=ci: _chan(ci, c),
+                fm_gain_hz=self.fs_ch / (2.0 * FM_GAIN), max_det=0,
+                fs=self.fs_ch, wideband=self.fs_ch > 50000)
+            for s in range(S):
+                merged[s].extend(dets[s])
+        out = {}
+        for s in range(S):
+            merged[s].sort(key=lambda d: d.score, reverse=True)
+            out[int(slot_cids[s])] = merged[s][:max_det] if max_det \
+                else merged[s]
+        return out

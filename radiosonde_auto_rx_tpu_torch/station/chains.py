@@ -2,8 +2,7 @@
 
 Copied from ``radiosonde_auto_rx_tpu/station/station.py`` (lines 31-120),
 whose module imports JAX; ``_demod_cfg`` builds the port's own
-``FSKConfig``.  Moving this shared policy out of the reference's
-``station.py`` so that both packages import it is queued in ROADMAP.md.
+``FSKConfig``.  The port keeps its own copy of such policy.
 """
 
 import numpy as np
@@ -79,15 +78,14 @@ CHAIN_TABLE = {
 MODEL_NAME = {"RD94RD41": "DROPSONDE", "IMET4": "IMET", "IMET1RS": "IMET",
               "IMET1AB": "IMET", "RS92NGP": "RS92"}
 
-# ROADMAP.md items that port what the steady slice leaves out
+# ROADMAP.md items that port what the slices so far leave out
 TODO_AFSK = "iMet AFSK chains (ROADMAP.md queue 1: iMet AFSK)"
 TODO_WIDE = "wideband chains and the wide scan (ROADMAP.md queue 1: " \
     "collision and wide-scan paths)"
-TODO_DETECT = "detection / confirm (ROADMAP.md queue 1: detection)"
 TODO_COLLIDE = "second sonde in a channel (ROADMAP.md queue 1: " \
     "collision and wide-scan paths)"
 TODO_LBAND = "L-band captures (ROADMAP.md queue 1: L-band)"
 TODO_POOL = "the frame-plane worker pool (ROADMAP.md queue 1: " \
-    "frame-plane pool under _host)"
+    "frame-plane pool)"
 TODO_SPLIT = "the split analyze/confirm/route dispatch (ROADMAP.md " \
-    "queue 1: detection)"
+    "queue 1: multi-device)"

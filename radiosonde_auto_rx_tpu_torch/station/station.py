@@ -6,16 +6,17 @@ Port of the fused steady block of
 ``captures_dispatch`` (one ``StationStep.steady_step`` per batch:
 channelize + PSD + recentering + per-type demod, speculated from the
 current task state) and ``captures_collect`` (the host scan and task
-policy, the speculation check, and frame decoding into telemetry).
+policy, the full-rate confirmation of new scan candidates, which starts
+a task for each detected sonde, the speculation check, and frame
+decoding into telemetry).
 
 The scan/task policy is a copy of the reference's, with the same
 semantics; the frame decoders, telemetry filter and config are the
-reference's own host modules, loaded through ``_host``.  Paths the
-slice does not port raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports them: detection of new candidates (``confirm``), a
-second sonde inside one channel, the wide scan and wideband chains,
-the iMet AFSK chains, L-band captures, and the frame-plane worker pool
-(the frame plane runs inline, ``frame_plane_workers=0``).
+port's copies of the reference's host modules.  Paths not ported yet
+raise ``NotImplementedError`` naming the ROADMAP.md item that ports
+them: a second sonde inside one channel, the wide scan and wideband
+chains, the iMet AFSK chains, L-band captures, and the frame-plane
+worker pool (the frame plane runs inline, ``frame_plane_workers=0``).
 """
 
 import logging
@@ -24,23 +25,21 @@ import time
 import numpy as np
 import torch
 
-from radiosonde_auto_rx_tpu_torch import _host
 from radiosonde_auto_rx_tpu_torch.demod.fsk import fsk_demod_stream
 from radiosonde_auto_rx_tpu_torch.detect.psd import scan_peaks
+from radiosonde_auto_rx_tpu_torch.models import get_model
 from radiosonde_auto_rx_tpu_torch.ops.channelizer import (
     channel_freqs, extract_channels, extract_phases, pfb_prototype)
 from radiosonde_auto_rx_tpu_torch.ops.resample import resample_planes
 from radiosonde_auto_rx_tpu_torch.parallel.station_step import StationStep
+from radiosonde_auto_rx_tpu_torch.station import gps_ephem
 from radiosonde_auto_rx_tpu_torch.station.chains import (
     CHAIN_TABLE, DRIFT_MIN_HZ, MODEL_NAME, RECENTER_MIN_HZ, TODO_AFSK,
-    TODO_COLLIDE, TODO_DETECT, TODO_LBAND, TODO_POOL, TODO_SPLIT, TODO_WIDE,
+    TODO_COLLIDE, TODO_LBAND, TODO_POOL, TODO_SPLIT, TODO_WIDE,
     WIDE_SCAN_FS, WIDE_SCAN_WIN_HZ, WIDE_WIDTH_HZ, _demod_cfg)
-
-_host.install()
-from radiosonde_auto_rx_tpu.models import get_model  # noqa: E402
-from radiosonde_auto_rx_tpu.station.config import default_config  # noqa: E402
-from radiosonde_auto_rx_tpu.station.frame_plane import FramePlane  # noqa: E402
-from radiosonde_auto_rx_tpu.station.telemetry import (  # noqa: E402
+from radiosonde_auto_rx_tpu_torch.station.config import default_config
+from radiosonde_auto_rx_tpu_torch.station.frame_plane import FramePlane
+from radiosonde_auto_rx_tpu_torch.station.telemetry import (
     RealtimeVelocityFilter, enrich_telemetry, telemetry_filter)
 
 log = logging.getLogger("station")
@@ -69,8 +68,7 @@ class Station:
     def __init__(self, config: dict | None = None, exporters=None,
                  center_freq_hz: float = 402.5e6, *, device):
         self.device = torch.device(device)
-        # the worker pool re-imports the reference package by name in
-        # each worker; the port decodes inline
+        # the worker pool is not ported: the port decodes inline
         self.config = {**default_config(), "frame_plane_workers": 0,
                        **(config or {})}
         if int(self.config["frame_plane_workers"]) != 0:
@@ -320,8 +318,13 @@ class Station:
     def _step(self, prof) -> StationStep:
         key = (prof.n_chan, prof.fs_ch)
         if key not in self._steps:
-            self._steps[key] = StationStep(self.device, n_chan=prof.n_chan,
-                                           fs_ch=prof.fs_ch)
+            # confirmation slots cover a scan's worth of candidates (the
+            # reference's default on a one-device mesh)
+            conf_default = max(2, 2 * int(self.config.get("max_peaks", 10)))
+            self._steps[key] = StationStep(
+                self.device, n_chan=prof.n_chan, fs_ch=prof.fs_ch,
+                conf_capacity=int(self.config.get("confirm_capacity",
+                                                  conf_default)))
         return self._steps[key]
 
     def process_captures(self, blocks, centers=None) -> list:
@@ -444,6 +447,7 @@ class Station:
         # and forced tasks (manual/active)
         tasks = {}                   # global cid -> (name, det)
         cand = []
+        cand_strength = {}           # cid -> PSD dB at the channel
         cid_off = {}                 # cid -> recentering offset (Hz)
         rec = {}                     # cid -> extraction f_rel
         collide = []                 # (b, f_abs): 2nd sonde in a channel
@@ -479,20 +483,31 @@ class Station:
                 cid_off[cid] = off
                 if abs(off) >= RECENTER_MIN_HZ:
                     rec[cid] = float(prof.freqs[ci]) + off
+            if not cands_b:
+                continue
+            db = 10.0 * np.log10(np.maximum(psd_np[b], 1e-20))
+            nfft = db.shape[-1]
             for ci, off in cands_b:
                 cid = b * n_chan + ci
                 fq = self._chan_center(ci) + off
                 if int(round(fq)) in self._wide_freqs:
                     wide_host.append((b, fq))
-                elif cid in tasks or cid in cid_off:
+                    continue
+                if cid in tasks or cid in cid_off:
+                    # a second sonde in a channel whose row is taken
                     collide.append((b, fq, None))
-                else:
-                    cand.append(cid)
-        # the slice's scope: what would need confirm, the collision path
-        # or the wide scan is not ported yet
-        if cand:
-            raise NotImplementedError(
-                f"{TODO_DETECT}: {len(cand)} new scan candidate(s)")
+                    continue
+                cand.append(cid)
+                cid_off[cid] = off
+                if abs(off) >= RECENTER_MIN_HZ:
+                    rec[cid] = float(prof.freqs[ci]) + off
+                # the candidate's PSD neighborhood (for overflow rank)
+                k = int(round((prof.freqs[ci] + off) / self.fs_wide *
+                              nfft)) + nfft // 2
+                lo = max(0, k - nfft // (2 * n_chan))
+                cand_strength[cid] = float(
+                    db[lo:k + nfft // (2 * n_chan) + 1].max())
+        # the collision path and the wide scan are not ported yet
         if collide:
             raise NotImplementedError(TODO_COLLIDE)
         if wide_host:
@@ -512,8 +527,55 @@ class Station:
                    for cid, f_rel in {**steady["rec"], **rec}.items()}
         chf = self._recenter_cids(chf, wide, prof, rec)
 
-        # every task is a forced one (no detections in the slice), so
-        # the reference's spacing rule over fresh detections keeps all
+        # full-rate confirmation: exact type decisions (headcmp, M10/M20
+        # + iMet disambiguation).  Unlike the reference (which pads the
+        # slots for its compile cache), only real candidates go in.
+        S = step.n_conf_slots
+        if len(cand) > S:
+            order = np.argsort([cand_strength[c] for c in cand])[::-1]
+            # a persistent signal is re-nominated by the next PSD scan
+            log.warning("confirmation slots full: dropping the %d "
+                        "weakest of %d candidates (re-nominated by the "
+                        "next scan if still present)",
+                        len(cand) - S, len(cand))
+            cand = [cand[i] for i in order[:S]]
+        if cand:
+            slots = np.asarray(cand, np.int64)
+            conf = step.confirm(chf, slots)
+            for cid, dets in step.decide_confirmed(conf, slots).items():
+                if not dets:
+                    continue
+                det = dets[0]
+                self.stats["detections"] += 1
+                if det.name in CHAIN_TABLE or det.name in MODEL_NAME:
+                    tasks[cid] = (det.name, det)
+                    # detector FM-DC refinement of the task frequency
+                    foff = det.freq_offset or 0.0
+                    if RECENTER_MIN_HZ <= abs(foff) <= 5e3:
+                        cid_off[cid] = cid_off.get(cid, 0.0) + foff
+
+        # spacing rule over the fresh detections (the reference's
+        # sequential handle_scan_results semantics): forced tasks hold
+        # their ground, then stronger detections absorb weaker ones
+        # within decoder_spacing_limit
+        spacing = float(self.config.get("decoder_spacing_limit", 15e3))
+
+        def _task_fz(cid):
+            b, ci = divmod(cid, n_chan)
+            self.center_freq = centers[b]
+            return self._chan_center(ci) + cid_off.get(cid, 0.0)
+
+        kept = [_task_fz(cid) for cid, (_, det) in tasks.items()
+                if det is None]
+        for cid, (_, det) in sorted(
+                ((c, v) for c, v in tasks.items() if v[1] is not None),
+                key=lambda kv: -kv[1][1].score):
+            fz = _task_fz(cid)
+            if any(abs(fz - g) < spacing for g in kept):
+                del tasks[cid]
+            else:
+                kept.append(fz)
+
         host_tasks = {}              # block -> [(ci, name, det)]
         for cid, (name, det) in tasks.items():
             b, ci = divmod(cid, n_chan)
@@ -718,7 +780,7 @@ class Station:
             # RS92 needs GPS ephemeris for its raw-pseudorange nav
             eph = self.config.get("rs92_ephemeris")
             if eph is None:
-                eph = _host.load("station.gps_ephem").get_ephemeris()
+                eph = gps_ephem.get_ephemeris()
                 self.config["rs92_ephemeris"] = eph
             if eph:
                 kwargs["ephemeris"] = eph

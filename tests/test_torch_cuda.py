@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels against their plain twins, on the card.
+"""The hand-written CUDA kernels against their plain twins, and the CUDA
+detector and stations against their CPU paths, on the card.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip where no
 CUDA device is present.  This file imports no JAX, so on a GPU
@@ -7,8 +8,11 @@ host without it it runs alone:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Tolerances: K1 to 1e-5 of the largest twin value, K2 per bin to 1e-4
-of (|twin| + the row's mean power) — float32 FMA on both sides, in
-another summation order (see chip_smoke.py).
+of (|twin| + the row's mean power), K3 per bin to 1e-4 of (|twin| + the
+row's RMS) — float32 FMA on both sides, in another summation order; the
+detector's scores to ``chip_smoke.DET_TOL`` (its normalization's float32
+running sums cancel, and the CUDA scan sums in another order; see
+chip_smoke.py).
 """
 
 import numpy as np
@@ -17,6 +21,7 @@ import torch
 
 from radiosonde_auto_rx_tpu_torch import kernels
 from radiosonde_auto_rx_tpu_torch.demod.fsk import _consts
+from radiosonde_auto_rx_tpu_torch.detect.scanner import SondeDetector
 from radiosonde_auto_rx_tpu_torch.ops import fft, fsk_sf
 from radiosonde_auto_rx_tpu_torch.station.chains import CHAIN_TABLE, \
     _demod_cfg
@@ -83,7 +88,64 @@ def test_k2_reads_strided_welch_view(dev):
         fft.fft_abs2(rows, win, True).cpu().numpy())
 
 
+@pytest.mark.parametrize("n,method", [(2, "auto"), (64, "auto"),
+                                      (1024, "auto"), (2048, "four-step"),
+                                      (4096, "four-step")])
+def test_k3_matches_twin(dev, n, method):
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(9, 2, n, generator=g, device=dev)
+    win = torch.rand(n, generator=g, device=dev) + 0.5
+    before = kernels.launches["fft"]
+    got = fft.fft(x, win, method)
+    assert kernels.launches["fft"] == before + (2 if n > 1024 else 1)
+    want = fft.fft_ref(x * win)
+    torch.cuda.synchronize()
+    mag = torch.hypot(want[:, 0], want[:, 1])
+    rms = mag.pow(2).mean(-1, keepdim=True).sqrt()
+    diff = torch.hypot(*(got - want).unbind(1))
+    assert float((diff / (mag + rms)).max()) <= 1e-4
+
+
+def test_k3_reads_complex_and_strided_rows(dev):
+    x = torch.randn(6, 2, 3 * 256, device=dev)[..., 256:512]
+    z = torch.complex(x[:, 0], x[:, 1])
+    np.testing.assert_allclose(fft.fft(x).cpu().numpy(),
+                               fft.fft(z).cpu().numpy(), rtol=0, atol=1e-4)
+
+
+def test_detector_cuda_matches_cpu(dev):
+    """The detector on 4 rows of 1 s at 48 kHz: the three sondes of the
+    8-channel smoke capture, extracted at their frequencies, and a row of
+    noise.  Streams are compared on the sonde rows only: on noise the
+    discriminator's angle is ill-conditioned wherever the IQ magnitude
+    nears zero, so float32 rounding there is not bounded by the peak."""
+    import chip_smoke as cs
+    from radiosonde_auto_rx_tpu_torch.ops.channelizer import \
+        extract_channels
+    n, fs = 8, 384_000
+    wide = cs.synth_stream(n, fs, 1).astype(np.float32) / 32768.0
+    freqs = [f for _, _, f, _, _ in cs.sondes_for(n, fs)] + [-150e3]
+    out = []
+    for d in (dev, torch.device("cpu")):
+        rows = extract_channels(wide, fs, freqs, n, d)
+        det = SondeDetector(fs // n, device=d)
+        out.append((det._condition(rows), det.detect(rows, max_det=0)))
+    (s_g, d_g), (s_c, d_c) = out
+    for a, b in zip(s_g, s_c):
+        assert float((a[:3].cpu() - b[:3]).abs().max()) <= \
+            cs.STREAM_TOL * float(b[:3].abs().max())
+    assert [[(x.name, x.tn, x.inverted) for x in ch] for ch in d_g] == \
+        [[(x.name, x.tn, x.inverted) for x in ch] for ch in d_c]
+    assert [ch[0].name if ch else None for ch in d_g] == \
+        ["RS41", "RS41", "DFM", None]
+    for g_ch, c_ch in zip(d_g, d_c):
+        for a, b in zip(g_ch, c_ch):
+            assert abs(a.score - b.score) <= cs.DET_TOL
+
+
 def test_kernels_refuse_bad_input(dev):
+    with pytest.raises(ValueError):
+        fft.fft(torch.zeros(2, 2, 96, device=dev))
     with pytest.raises(ValueError):
         fft.fft_abs2(torch.zeros(2, 2, 4096, device=dev),
                      torch.ones(4096, device=dev))
@@ -109,5 +171,23 @@ def test_station_cuda_equals_cpu(dev):
     gpu, launches = cs.drive_station(dev, runs, n, fs)
     cpu, _ = cs.drive_station(torch.device("cpu"), runs, n, fs)
     assert launches["freq_est_sf"] > 0 and launches["fft_abs2"] > 0
+    got = sorted(map(cs._key, gpu[0][1]))
+    assert got and got == sorted(map(cs._key, cpu[0][1]))
+
+
+def test_detecting_station_cuda_equals_cpu(dev):
+    """With no task, the CUDA station finds the three sondes as the CPU
+    station does, block by block, and decodes the same telemetry."""
+    import chip_smoke as cs
+    n, fs = 8, 384_000
+    stream = cs.synth_stream(n, fs, 2)
+    runs = [cs.split_blocks(stream, fs, 1)]
+    gpu, launches = cs.drive_station(dev, runs, n, fs, manual=False)
+    cpu, _ = cs.drive_station(torch.device("cpu"), runs, n, fs,
+                              manual=False)
+    assert launches["freq_est_sf"] > 0 and launches["fft_abs2"] > 0
+    assert gpu[0][0].stats["detections"] == 3
+    for (t_g, _), (t_c, _) in zip(gpu[0][2], cpu[0][2]):
+        assert cs.same_tasks(t_g, t_c)
     got = sorted(map(cs._key, gpu[0][1]))
     assert got and got == sorted(map(cs._key, cpu[0][1]))

@@ -123,7 +123,9 @@ def test_wrappers_never_fall_back_off_cpu():
     with pytest.raises(ValueError):
         fft.fft_abs2(torch.zeros(2, 2, 64, device=meta),
                      torch.ones(64, device=meta))
-    assert kernels.launches == {"freq_est_sf": 0, "fft_abs2": 0}
+    with pytest.raises(ValueError):
+        fft.fft(torch.zeros(2, 2, 64, device=meta))
+    assert kernels.launches == {"freq_est_sf": 0, "fft_abs2": 0, "fft": 0}
 
 
 def test_kernel_library_is_built_lazily():
@@ -132,4 +134,4 @@ def test_kernel_library_is_built_lazily():
     assert kernels._lib is None
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     names = {p.name for p in kernels._sources()}
-    assert {"fsk_sf.cu", "fft_abs2.cu"} <= names
+    assert {"fsk_sf.cu", "fft_abs2.cu", "fft_planes.cu"} <= names

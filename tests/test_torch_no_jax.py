@@ -1,13 +1,17 @@
-"""The port runs without JAX.
+"""The port runs without JAX and without the JAX package.
 
 A subprocess whose meta-path hook refuses every ``jax``/``jaxlib``
-import loads ``radiosonde_auto_rx_tpu_torch`` and drives the slice on
-the CPU at 8 channels (384 kHz): the smoke script's three sondes (RS41
-on grid, RS41 +10 kHz off grid, DFM) as four 1 s blocks and as two 2 s
-blocks, exactly as ``chip_smoke.py`` drives them on the card.  It checks
-the telemetry, that every frame decoder of the reference registry
-imported, and that no JAX module was loaded.  A static check keeps
-``import jax`` out of the port's files and the smoke script.
+import and the top-level package ``radiosonde_auto_rx_tpu`` (exactly:
+``radiosonde_auto_rx_tpu_torch`` stays importable) loads the port and
+drives its station on the CPU at 8 channels (384 kHz) over the smoke
+script's three sondes (RS41 on grid, RS41 +10 kHz off grid, DFM), as
+four 1 s blocks and as two 2 s blocks, exactly as ``chip_smoke.py``
+drives them on the card: once with the sondes as manual tasks, once
+with no task, so that the station finds them by itself.  It checks the
+telemetry, the detections, that every frame decoder of the port's
+registry imported, and that no blocked module was loaded.  A static
+check keeps ``import jax`` and imports of the JAX package out of the
+port's files and the smoke script.
 """
 
 import json
@@ -26,9 +30,12 @@ import json, sys
 sys.path.insert(0, sys.argv[1])
 
 
+BLOCKED = ("jax", "jaxlib", "radiosonde_auto_rx_tpu")
+
+
 class _NoJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError(f"{name} is blocked in this process")
         return None
 
@@ -37,20 +44,26 @@ sys.meta_path.insert(0, _NoJax())
 import torch
 torch.set_num_threads(1)
 import chip_smoke as cs
-from radiosonde_auto_rx_tpu.models import available_models
+from radiosonde_auto_rx_tpu_torch.models import available_models
 
 n, fs = 8, 384_000
 stream = cs.synth_stream(n, fs, 4)
 runs = [cs.split_blocks(stream, fs, 1), cs.split_blocks(stream, fs, 2)]
-results, launches = cs.drive_station(torch.device("cpu"), runs, n, fs)
-seen = [cs.check_telemetry(results[0][1], n, fs, ("RS41",)),
-        cs.check_telemetry(results[1][1], n, fs, ("RS41", "DFM"))]
-print(json.dumps(dict(
-    seen=seen, launches=launches,
-    fused=[st.stats.get("fused_channels", 0) for st, _ in results],
-    models=sorted(available_models()),
-    jax=sorted(m for m in sys.modules
-               if m.split(".")[0] in ("jax", "jaxlib")))))
+out = dict(models=sorted(available_models()))
+for manual in (True, False):
+    results, launches = cs.drive_station(torch.device("cpu"), runs, n, fs,
+                                         manual=manual)
+    out[str(manual)] = dict(
+        seen=[cs.check_telemetry(results[0][1], n, fs, ("RS41",)),
+              cs.check_telemetry(results[1][1], n, fs, ("RS41", "DFM"))],
+        launches=launches,
+        fused=[st.stats.get("fused_channels", 0) for st, _, _ in results],
+        detections=[st.stats["detections"] for st, _, _ in results],
+        tasks=[sorted(v["type"] for v in st.active.values())
+               for st, _, _ in results])
+out["blocked"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in BLOCKED)
+print(json.dumps(out))
 """
 
 
@@ -60,19 +73,27 @@ def test_slice_runs_without_jax():
                          cwd=ROOT)
     assert res.returncode == 0, res.stderr[-4000:]
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert out["jax"] == []
-    one_s, two_s = out["seen"]
-    assert one_s["T1357911"] > 0 and one_s["P2468024"] > 0
-    assert all(v > 0 for v in two_s.values())
-    assert all(f > 0 for f in out["fused"])
-    # CPU tensors take the plain twins: no kernel launches
-    assert out["launches"] == {"freq_est_sf": 0, "fft_abs2": 0}
+    assert out["blocked"] == []
+    for manual in ("True", "False"):
+        run = out[manual]
+        one_s, two_s = run["seen"]
+        assert one_s["T1357911"] > 0 and one_s["P2468024"] > 0
+        assert all(v > 0 for v in two_s.values())
+        assert all(f > 0 for f in run["fused"])
+        # CPU tensors take the plain twins: no kernel launches
+        assert run["launches"] == {"freq_est_sf": 0, "fft_abs2": 0,
+                                   "fft": 0}
+    # the task-less station found the three sondes itself
+    assert out["False"]["detections"] == [3, 3]
+    assert out["True"]["detections"] == [0, 0]
+    assert out["False"]["tasks"] == [["DFM", "RS41", "RS41"]] * 2
     assert {"RS41", "RS92", "DFM", "M10", "M20", "LMS6", "IMET5",
             "MEISEI", "MRZ", "MTS01", "DROPSONDE"} <= set(out["models"])
 
 
 def test_no_jax_import_in_port_sources():
-    pat = re.compile(r"^\s*(import\s+jax|from\s+jax)", re.M)
+    pat = re.compile(r"^\s*(import\s+jax|from\s+jax|"
+                     r"(from|import)\s+radiosonde_auto_rx_tpu\b)", re.M)
     files = sorted((ROOT / "radiosonde_auto_rx_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10

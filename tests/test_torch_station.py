@@ -101,12 +101,16 @@ def test_steady_step_outputs_match(runs):
 
 
 def test_out_of_slice_paths_raise():
-    """A scan candidate that would need confirm raises, naming the
-    ROADMAP item, rather than being silently dropped."""
+    """Paths not ported yet raise, naming the ROADMAP item, rather than
+    being silently dropped: a second sonde inside a taken channel (the
+    collision path) and L-band captures."""
     st = Station(_cfg(), exporters=[_Col()], center_freq_hz=CENTER,
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="detection"):
-        st.process_captures([_capture(0.0, 0.0, seed=5)])
+    # a manual task 20 kHz above the RS41, in its channel: the RS41's
+    # scan peak is too far from the task to be absorbed by it
+    st.start_manual_decoder(RS41_F + 20e3, "RS41")
+    with pytest.raises(NotImplementedError, match="second sonde"):
+        st.process_captures([_capture(0.0, -20e3, seed=5)])
     with pytest.raises(NotImplementedError, match="L-band"):
         st.process_captures([_capture(0.0, 0.0, seed=5)], [1680e6])
     with pytest.raises(TypeError):           # no silent default device
