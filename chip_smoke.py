@@ -18,9 +18,11 @@ Phases, in order; any failure raises (non-zero exit, traceback):
    N = 64, 256, 1024 (512 rows, Hann window) and, by the four-step
    path, N = 2048 and 4096 (64 rows).  Print each error against its
    tolerance, each kernel's time beside its twin's, the one PyTorch
-   call that computes the same function (cuFFT; none for K1), and the
-   bound: the larger of its float32 operations over 67 TFLOP/s and its
-   bytes (inputs read once, outputs written once) over 3.35 TB/s.
+   call that computes the same function from the same planes and window
+   (cuFFT; none for K1), and the bound: the larger of the function's
+   least float32 operations (each DFT as an FFT, 5 N log2 N) over
+   67 TFLOP/s and its bytes (inputs read once, outputs written once)
+   over 3.35 TB/s.
 3. Synthesize 4 s of one 2.4 MHz capture at 402.5 MHz (cs16 wire format,
    ~0.002 RMS noise) carrying an RS41 on a channel center, an RS41
    +10 kHz off grid and a DFM on a channel center.  The signals come
@@ -79,12 +81,14 @@ K3_TOL = 1e-4                    # per bin, |kernel - twin| / (|twin| + row RMS)
 K3_SHAPES = ((64, 512, "auto"), (256, 512, "auto"), (1024, 512, "auto"),
              (2048, 64, "four-step"), (4096, 64, "four-step"))
 # CUDA detector vs its CPU path: FM streams to STREAM_TOL of their peak;
-# peak scores, DC terms and near-tie positions to DET_TOL (the float32
-# running sums of the normalization cancel, and the CUDA scan sums in
-# another order than the CPU: a few 1e-4 of a score; decisions are
-# thresholded at 0.6-0.8)
+# peak scores and DC terms to DET_TOL (the float32 running sums of the
+# normalization cancel, and the CUDA scan sums in another order than the
+# CPU; measured 1e-5 of a score on an H100; decisions are thresholded at
+# 0.6-0.8); peak positions equal wherever the row's best two |scores|
+# are more than DET_TOL apart, so that the measured score error cannot
+# swap them
 STREAM_TOL = 1e-4
-DET_TOL = 2e-3
+DET_TOL = 1e-4
 PEAK_F32 = 67e12                 # H100 SXM float32 FLOP/s, no tensor cores
 PEAK_BYTES = 3.35e12             # H100 SXM HBM3 bytes/s
 STATION_CFG = {"station_lat": 0.0, "station_lon": 0.0,
@@ -263,10 +267,18 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def fft_flops(n: int) -> float:
+    """Operations of one complex length-``n`` DFT done as an FFT, the
+    least work of the function (5 N log2 N; the kernels' own O(N^2) DFT
+    does 8 N^2 and is not the bound)."""
+    return 5.0 * n * np.log2(n)
+
+
 def bound(flops: float, nbytes: float):
-    """(least ms on the card, "operations" or "bytes"): float32 work
-    outside the tensor cores over 67 TFLOP/s, and each input read once
-    plus each output written once over 3.35 TB/s (H100 SXM data sheet)."""
+    """(least ms on the card, "operations" or "bytes"): the function's
+    least float32 work outside the tensor cores over 67 TFLOP/s, and each
+    input read once plus each output written once over 3.35 TB/s (H100
+    SXM data sheet)."""
     t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else \
         (t_bytes, "bytes")
@@ -289,9 +301,9 @@ def check_k1(dev, name, cfg, c, seed=0):
     ms = _time_ms(lambda: fsk_sf.freq_est_sf(*args))
     plain = _time_ms(lambda: fsk_sf.freq_est_sf_ref(*args))
     nf, nd = len(k.starts), cfg.ndft
-    # per hop and bin an ndft-term complex DFT (4 FMA a term), |X|, the
-    # weighted hop sum; the EMA
-    flops = 8.0 * c * nf * nd * nd + 5.0 * c * nf * nd + 2.0 * c * nd
+    # per hop the windowed ndft-point DFT as an FFT (window, FFT), per
+    # bin |X| and the weighted hop sum; the EMA
+    flops = c * nf * (fft_flops(nd) + 2.0 * nd + 5.0 * nd) + 2.0 * c * nd
     nbytes = 4.0 * (c * 2 * cfg.nmem + 2 * c * nd + 2 * nd * nd + 2 * nf)
     b_ms, b_by = bound(flops, nbytes)
     ok = bool(torch.isfinite(got).all()) and rel <= K1_TOL
@@ -323,12 +335,14 @@ def check_k2(dev, captures, seed=0):
     rel = float((diff / (want.abs() + want.mean(-1, keepdim=True))).max())
     ms = _time_ms(lambda: fft.fft_abs2(view, win, True))
     plain = _time_ms(lambda: fft.fft_abs2_ref(view, win, True))
-    # the library call: cuFFT of the windowed complex rows, |.|^2, roll
-    xc = torch.complex(view[:, 0], view[:, 1]) * win
-    lib = _time_ms(lambda: torch.roll(torch.fft.fft(xc).abs() ** 2,
-                                      nfft // 2, dims=-1))
+    # the library call from the same planes and window: complex rows,
+    # window, cuFFT, |.|^2, roll
+    lib = _time_ms(lambda: torch.roll(torch.fft.fft(
+        torch.complex(view[:, 0], view[:, 1]) * win).abs() ** 2,
+        nfft // 2, dims=-1))
     rows = captures * nseg
-    b_ms, b_by = bound(8.0 * rows * nfft * nfft + 3.0 * rows * nfft,
+    # per row: window, FFT, |.|^2
+    b_ms, b_by = bound(rows * (fft_flops(nfft) + 2.0 * nfft + 3.0 * nfft),
                        4.0 * (rows * 2 * nfft + nfft + rows * nfft))
     ok = bool(torch.isfinite(got).all()) and rel <= K2_TOL
     print(f"K2 fft_abs2 N={nfft} B={rows} (sparse Welch view of "
@@ -375,15 +389,12 @@ def k3_phase(dev):
         worst = max(worst, err)
         ms = _time_ms(lambda: fft.fft(x, win, method))
         plain = _time_ms(lambda: fft.fft_ref(x, win))
-        xc = torch.complex(x[:, 0], x[:, 1]) * win
-        lib = _time_ms(lambda: torch.fft.fft(xc))
-        if method == "four-step":
-            n1 = min(128, n)
-            n2 = n // n1
-            flops = 8.0 * b * (n2 * n1 * n1 + n1 * n2 * n2) + 8.0 * b * n
-        else:
-            flops = 8.0 * b * n * n + 2.0 * b * n
-        b_ms, b_by = bound(flops, 4.0 * (2 * b * n + n + 2 * b * n))
+        # the library call from the same planes and window
+        lib = _time_ms(lambda: torch.fft.fft(
+            torch.complex(x[:, 0], x[:, 1]) * win))
+        # per row: window, FFT (the same function for either method)
+        b_ms, b_by = bound(b * (fft_flops(n) + 2.0 * n),
+                           4.0 * (2 * b * n + n + 2 * b * n))
         print(f"K3 fft N={n} B={b} {method}: max_abs_err={err:.3e} "
               f"per-bin rel={rel:.3e} (tol {K3_TOL}) kernel {ms:.4f} ms, "
               f"twin {plain:.4f} ms, torch.fft {lib:.4f} ms, "
@@ -428,22 +439,24 @@ def check_detector(dev, stream):
     c_step = step
     s_err = float((g_conf["streams"].cpu() - c_conf["streams"]).abs().max())
     s_ref = float(c_conf["streams"].abs().max())
-    v_err = 0.0
+    v_err = dc_err = 0.0
+    n_pos = n_rows = 0
     for ci, (gp, cp) in enumerate(zip(g_conf["peaks"], c_conf["peaks"])):
         gv, gi, gd, gm = (t.cpu() for t in gp)
         cv, cidx, cd, cm = cp
         v_err = max(v_err, float((gv - cv).abs().max()))
+        dc_err = max(dc_err, float((gd - cd).abs().max()),
+                     float((gm - cm).abs().max()))
         fm = c_conf["streams"][ci]
         _, _, _, bank, lens = c_step.detector.classes[ci]
         corr, xnorm, _ = _correlate(fm, bank, lens)
         top2 = (corr / xnorm).abs().topk(2, dim=-1).values
         tie = (top2[..., 0] - top2[..., 1]) < DET_TOL
+        n_pos += int((~tie).sum())
+        n_rows += tie.numel()
         if not torch.equal(gi[~tie], cidx[~tie]):
             raise AssertionError(f"detector class {ci}: peak positions "
                                  f"differ between CUDA and CPU")
-        if float((gd - cd).abs().max()) > DET_TOL or \
-                float((gm - cm).abs().max()) > DET_TOL:
-            raise AssertionError(f"detector class {ci}: DC terms differ")
 
     def key(dec):
         return {c: [(d.name, d.tn, d.inverted) for d in v]
@@ -451,10 +464,14 @@ def check_detector(dev, stream):
 
     print(f"phase 7 detector CUDA vs CPU (confirm of {len(freqs)} rows of "
           f"48,000 samples): streams max err {s_err:.3e} (tol "
-          f"{STREAM_TOL} x {s_ref:.3f}), peak scores max err {v_err:.3e} "
-          f"(tol {DET_TOL}), decisions {key(g_dec)}")
+          f"{STREAM_TOL} x {s_ref:.3f}), peak scores max err {v_err:.3e}, "
+          f"DC terms max err {dc_err:.3e} (tol {DET_TOL}), peak positions "
+          f"equal in {n_pos} of {n_rows} (row, template) pairs (the rest "
+          f"tie within {DET_TOL}), decisions {key(g_dec)}")
+    if n_pos == 0:
+        raise AssertionError("the position check compared no peak")
     if s_err > STREAM_TOL * s_ref or v_err > DET_TOL or \
-            key(g_dec) != key(c_dec):
+            dc_err > DET_TOL or key(g_dec) != key(c_dec):
         raise AssertionError("the CUDA detector disagrees with its CPU path")
 
 

@@ -8,13 +8,14 @@
 // [N1, N1] and [N2, N2] DFT matrices with a ones window, so the wrapper
 // (ops/fft.py) calls this kernel for them with no window.
 //
-// What bounds it on an H100: the arithmetic.  The direct DFT does 8 B N^2
-// float32 operations (N = 1024, B = 512: 4.3 GFLOP, about 64 us at the
-// 67 TFLOP/s float32 rate outside the tensor cores) against 16 B N bytes
-// of I/O (8.4 MB, about 2.5 us at 3.35 TB/s).  Within the loop each
+// What bounds it on an H100: the function needs its 16 B N bytes of I/O
+// (N = 1024, B = 512: 8.4 MB, about 2.5 us at 3.35 TB/s) and, as an FFT,
+// 5 B N log2 N operations (26 MFLOP, under 1 us at 67 TFLOP/s), so it is
+// bound by bytes.  This simple form is not: its direct DFT does 8 B N^2
+// float32 operations (4.3 GFLOP, about 64 us), and within the loop each
 // 4 FMAs read 4 floats from shared memory, so shared-memory bandwidth and
-// the bank conflicts of the twiddle reads bound this simple form below
-// that rate; an FFT schedule or the tensor cores are a later redesign.
+// the bank conflicts of the twiddle reads hold it further back.  An FFT
+// schedule (radix stages in shared memory) is a later redesign.
 //
 // Design (as K2, csrc/fft_abs2.cu): one block per (row, tile of 256
 // output bins), one thread per bin.  The block stages one N-entry cos/sin
