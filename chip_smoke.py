@@ -12,17 +12,22 @@ Phases, in order; any failure raises (non-zero exit, traceback):
    card: K1 (FSK frequency-estimator pass) at the shapes the main path
    below gives it (RS41 with 2 channels, DFM at 50 kHz with 1), then
    RS41 and DFM with 16 channels and the MTS01 and M20 geometries; K2
-   (|DFT|^2 of the Welch PSD) at N = 2048 on the sparse-Welch view of
-   1 capture (the main path's 292 segments) and of 10 (2920); K3
-   (windowed complex DFT) through its entry point ``ops.fft.fft`` at
-   N = 64, 256, 1024 (512 rows, Hann window) and, by the four-step
-   path, N = 2048 and 4096 (64 rows).  Print each error against its
-   tolerance, each kernel's time beside its twin's, the one PyTorch
-   call that computes the same function from the same planes and window
-   (cuFFT; none for K1), and the bound: the larger of the function's
-   least float32 operations (each DFT as an FFT, 5 N log2 N) over
-   67 TFLOP/s and its bytes (inputs read once, outputs written once)
-   over 3.35 TB/s.
+   (|FFT|^2 of the Welch PSD) at N = 2048 on the sparse-Welch view of
+   1 capture (the main path's 292 segments) and of 10 (2920), both
+   timed, and on the half-overlapped Welch tilings of a capture that
+   starts at an odd float (rows at no particular alignment); K3
+   (windowed complex FFT) through its entry point ``ops.fft.fft`` at
+   N = 64, 256, 1024 (512 rows, Hann window) and N = 2048, 4096 (64
+   rows) as one launch each, and N = 8192, above the kernel's largest
+   row, by the factored path (two launches); the launches of each route
+   are counted.  Print each error against its tolerance, each kernel's
+   time (device time, with the launches queued ahead of the card, and
+   the time of a call when the wrapper's Python sets the pace) beside
+   its twin's, the one PyTorch call that computes the same function from the same
+   planes and window (cuFFT; none for K1), and the bound: the larger of
+   the function's least float32 operations (each DFT as an FFT,
+   5 N log2 N) over 67 TFLOP/s and its bytes (inputs read once, outputs
+   written once) over 3.35 TB/s.
 3. Synthesize 4 s of one 2.4 MHz capture at 402.5 MHz (cs16 wire format,
    ~0.002 RMS noise) carrying an RS41 on a channel center, an RS41
    +10 kHz off grid and a DFM on a channel center.  The signals come
@@ -54,8 +59,9 @@ Phases, in order; any failure raises (non-zero exit, traceback):
 
 The second-to-last line is a JSON object of per-kernel results (times
 at the main path's shapes, bound, library-call time, the largest error
-of all the checks, the detection path's launch counts for K1 and K2 and
-K3's phase's), the last line ``{"ok": true, "device": {...}}``.
+of all the checks, the
+detection path's launch counts for K1 and K2 and K3's phase's; K2 and
+K3 also list every shape timed), the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before printing any
 result.
 """
@@ -77,9 +83,12 @@ RS41_TS = 1_755_600_000          # fixed epoch -> identical frames per run
 K1_TOL = 1e-5                    # max |kernel - twin| / max |twin|
 K2_TOL = 1e-4                    # per bin, |kernel - twin| / (|twin| + row mean)
 K3_TOL = 1e-4                    # per bin, |kernel - twin| / (|twin| + row RMS)
-# K3's phase: (N, rows, method); "auto" is one direct DFT up to N = 1024
-K3_SHAPES = ((64, 512, "auto"), (256, 512, "auto"), (1024, 512, "auto"),
-             (2048, 64, "four-step"), (4096, 64, "four-step"))
+# K3's phase: (N, rows, method, kernel launches expected): one launch up
+# to the kernel's largest row (4096), two above (the factored path's two
+# DFT stages)
+K3_SHAPES = ((64, 512, "auto", 1), (256, 512, "auto", 1),
+             (1024, 512, "auto", 1), (2048, 64, "auto", 1),
+             (4096, 64, "auto", 1), (8192, 64, "auto", 2))
 # CUDA detector vs its CPU path: FM streams to STREAM_TOL of their peak;
 # peak scores and DC terms to DET_TOL (the float32 running sums of the
 # normalization cancel, and the CUDA scan sums in another order than the
@@ -252,25 +261,41 @@ def drive_station(device, runs, n_chan: int, fs_wide: int,
 # ---------------------------------------------------------------------- #
 # kernels against their twins
 
-def _time_ms(fn, reps: int = 20) -> float:
+def _time_ms(fn, reps: int = 20, ahead: bool = True) -> float:
+    """Mean ms of ``fn`` between two CUDA events around ``reps`` calls,
+    after 3 warm-ups.  ``ahead``: the device first spins
+    (``torch.cuda._sleep``, ~6 ms at first), so the host has queued every
+    call before the first one starts and the events bracket device time
+    alone.  That is checked: if the spin had ended by the time the last
+    call was queued, the timing is taken again behind a spin four times
+    as long, and a host that never gets ahead is an error.  Without
+    ``ahead`` a call shorter than its wrapper's Python is timed at the
+    host's pace (the launch gap)."""
     import torch
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    for spin in (10_000_000, 40_000_000, 160_000_000, 640_000_000):
+        torch.cuda.synchronize()
+        if ahead:
+            torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(reps):
+            fn()
+        queued_ahead = not start.query()    # the card was still spinning
+        stop.record()
+        torch.cuda.synchronize()
+        if queued_ahead or not ahead:
+            return start.elapsed_time(stop) / reps
+    raise RuntimeError("the host never queued the timed calls ahead of "
+                       "the card")
 
 
 def fft_flops(n: int) -> float:
     """Operations of one complex length-``n`` DFT done as an FFT, the
-    least work of the function (5 N log2 N; the kernels' own O(N^2) DFT
-    does 8 N^2 and is not the bound)."""
+    least work of the function (5 N log2 N; K1's own O(N^2) DFT does
+    8 N^2 and is not the bound)."""
     return 5.0 * n * np.log2(n)
 
 
@@ -299,6 +324,7 @@ def check_k1(dev, name, cfg, c, seed=0):
     err = float((got - want).abs().max())
     rel = err / float(want.abs().max())
     ms = _time_ms(lambda: fsk_sf.freq_est_sf(*args))
+    call = _time_ms(lambda: fsk_sf.freq_est_sf(*args), ahead=False)
     plain = _time_ms(lambda: fsk_sf.freq_est_sf_ref(*args))
     nf, nd = len(k.starts), cfg.ndft
     # per hop the windowed ndft-point DFT as an FFT (window, FFT), per
@@ -309,12 +335,13 @@ def check_k1(dev, name, cfg, c, seed=0):
     ok = bool(torch.isfinite(got).all()) and rel <= K1_TOL
     print(f"K1 freq_est_sf {name} C={c} nmem={cfg.nmem} ndft={cfg.ndft} "
           f"hops={cfg.numffts}: max_abs_err={err:.3e} rel={rel:.3e} "
-          f"(tol {K1_TOL}) kernel {ms:.4f} ms, twin {plain:.4f} ms, "
-          f"bound {b_ms:.5f} ms ({b_by})")
+          f"(tol {K1_TOL}) kernel {ms:.4f} ms ({call:.4f} a call at the "
+          f"host's pace), twin {plain:.4f} ms, bound {b_ms:.5f} ms "
+          f"({b_by})")
     if not ok:
         raise AssertionError(f"K1 {name}: disagrees with its twin")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+    return dict(max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def check_k2(dev, captures, seed=0):
@@ -334,6 +361,7 @@ def check_k2(dev, captures, seed=0):
     err = float(diff.max())
     rel = float((diff / (want.abs() + want.mean(-1, keepdim=True))).max())
     ms = _time_ms(lambda: fft.fft_abs2(view, win, True))
+    call = _time_ms(lambda: fft.fft_abs2(view, win, True), ahead=False)
     plain = _time_ms(lambda: fft.fft_abs2_ref(view, win, True))
     # the library call from the same planes and window: complex rows,
     # window, cuFFT, |.|^2, roll
@@ -347,13 +375,47 @@ def check_k2(dev, captures, seed=0):
     ok = bool(torch.isfinite(got).all()) and rel <= K2_TOL
     print(f"K2 fft_abs2 N={nfft} B={rows} (sparse Welch view of "
           f"{captures} capture(s)): max_abs_err={err:.3e} per-bin "
-          f"rel={rel:.3e} (tol {K2_TOL}) kernel {ms:.4f} ms, "
-          f"twin {plain:.4f} ms, torch.fft {lib:.4f} ms, "
-          f"bound {b_ms:.5f} ms ({b_by})")
+          f"rel={rel:.3e} (tol {K2_TOL}) kernel {ms:.4f} ms ({call:.4f} a "
+          f"call at the host's pace), "
+          f"twin {plain:.4f} ms, torch.fft {lib:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by})")
     if not ok:
         raise AssertionError("K2: disagrees with its twin")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib)
+    return dict(max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+
+
+def check_k2_overlapped(dev, seed=2):
+    """K2 on the two interleaved tilings of a half-overlapped Welch PSD
+    (``detect/psd.py::_welch`` with hop = nfft/2) of a capture that starts
+    3 floats into its buffer, so that no row is 16-byte aligned.  Returns
+    the largest absolute error."""
+    import torch
+    from radiosonde_auto_rx_tpu_torch.detect.psd import _window_on
+    from radiosonde_auto_rx_tpu_torch.ops import fft
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nfft, nk = 2048, 146
+    x = torch.randn(2, 2, 3 + (nk + 1) * nfft, generator=g, device=dev)[..., 3:]
+    win = _window_on(nfft, dev)
+    worst = 0.0
+    for off in (0, nfft // 2):
+        view = x[:, :, off:off + nk * nfft].reshape(2, 2, nk, nfft)
+        if view.data_ptr() % 16 == 0:
+            raise AssertionError("the overlapped tiling came out aligned")
+        got = fft.fft_abs2(view, win, True)
+        want = fft.fft_abs2_ref(view, win, True)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        rel = float((diff / (want.abs() + want.mean(-1, keepdim=True))).max())
+        worst = max(worst, float(diff.max()))
+        print(f"K2 fft_abs2 N={nfft} B={2 * nk} (overlapped Welch tiling at "
+              f"offset {off}, rows from an odd float): "
+              f"max_abs_err={float(diff.max()):.3e} per-bin rel={rel:.3e} "
+              f"(tol {K2_TOL})")
+        if not bool(torch.isfinite(got).all()) or rel > K2_TOL:
+            raise AssertionError("K2 (overlapped tiling): disagrees with "
+                                 "its twin")
+    return worst
 
 
 def k3_phase(dev):
@@ -366,19 +428,24 @@ def k3_phase(dev):
     from radiosonde_auto_rx_tpu_torch.ops import fft
     g = torch.Generator(device=dev).manual_seed(3)
     cases = []
-    for n, b, method in K3_SHAPES:
+    for n, b, method, _ in K3_SHAPES:
         x = torch.randn(b, 2, n, generator=g, device=dev)
         win = torch.hann_window(n, periodic=False, device=dev)
         cases.append((n, b, method, x, win))
     kernels.reset_launches()
-    outs = [fft.fft(x, win, method) for n, b, method, x, win in cases]
+    outs, per_case = [], []
+    for n, b, method, x, win in cases:
+        seen = kernels.launches["fft"]
+        outs.append(fft.fft(x, win, method))
+        per_case.append(kernels.launches["fft"] - seen)
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
     print(f"phase 2 K3 path (ops.fft.fft at {len(cases)} shapes): "
-          f"launches {launches}")
-    if launches["fft"] <= 0:
-        raise AssertionError("fft was not launched by its entry point")
-    entry, worst = None, 0.0
+          f"launches {launches}, by shape {per_case}")
+    if per_case != [k for _, _, _, k in K3_SHAPES]:
+        raise AssertionError(f"fft launched {per_case} kernels by shape, "
+                             f"expected {[k for *_, k in K3_SHAPES]}")
+    entry, worst, shapes = None, 0.0, []
     for (n, b, method, x, win), got in zip(cases, outs):
         want = fft.fft_ref(x * win)
         mag = torch.hypot(want[:, 0], want[:, 1])
@@ -388,6 +455,7 @@ def k3_phase(dev):
         rel = float((diff / (mag + rms)).max())
         worst = max(worst, err)
         ms = _time_ms(lambda: fft.fft(x, win, method))
+        call = _time_ms(lambda: fft.fft(x, win, method), ahead=False)
         plain = _time_ms(lambda: fft.fft_ref(x, win))
         # the library call from the same planes and window
         lib = _time_ms(lambda: torch.fft.fft(
@@ -396,17 +464,18 @@ def k3_phase(dev):
         b_ms, b_by = bound(b * (fft_flops(n) + 2.0 * n),
                            4.0 * (2 * b * n + n + 2 * b * n))
         print(f"K3 fft N={n} B={b} {method}: max_abs_err={err:.3e} "
-              f"per-bin rel={rel:.3e} (tol {K3_TOL}) kernel {ms:.4f} ms, "
-              f"twin {plain:.4f} ms, torch.fft {lib:.4f} ms, "
-              f"bound {b_ms:.5f} ms ({b_by})")
+              f"per-bin rel={rel:.3e} (tol {K3_TOL}) kernel {ms:.4f} ms "
+              f"({call:.4f} a call at the host's pace), twin {plain:.4f} "
+              f"ms, torch.fft {lib:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
         if not bool(torch.isfinite(got).all()) or rel > K3_TOL:
             raise AssertionError(f"K3 N={n} {method}: disagrees with its "
                                  f"twin")
+        times = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=lib)
+        shapes.append(dict(n=n, rows=b, method=method, **times))
         if n == 1024:
-            entry = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib)
-    entry["max_abs_err"] = worst
-    return entry, launches["fft"]
+            entry = times
+    return dict(entry, max_abs_err=worst, shapes=shapes), launches["fft"]
 
 
 def check_detector(dev, stream):
@@ -531,9 +600,12 @@ def main() -> int:
                                       ("MTS01", 4), ("M20", 4)), 1):
         k1["max_abs_err"] = max(k1["max_abs_err"], check_k1(
             dev, name, cfg_of(name), c, seed)["max_abs_err"])
-    k2 = check_k2(dev, 1)
-    k2["max_abs_err"] = max(k2["max_abs_err"],
-                            check_k2(dev, 10, seed=1)["max_abs_err"])
+    k2, k2_wide = check_k2(dev, 1), check_k2(dev, 10, seed=1)
+    k2["shapes"] = [dict(n=2048, rows=rows, **{
+        k: v for k, v in res.items() if k != "max_abs_err"})
+        for rows, res in ((292, k2), (2920, k2_wide))]
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_wide["max_abs_err"],
+                            check_k2_overlapped(dev))
     k3, k3_launches = k3_phase(dev)
 
     # 3-5. the steady path with manual tasks

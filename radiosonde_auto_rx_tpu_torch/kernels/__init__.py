@@ -6,8 +6,9 @@ linked into ONE shared library with a plain C interface, loaded with
 ``ctypes`` (no PyTorch headers in the build, so it takes seconds, not
 minutes).
 The library lands in ``build/kernels/`` at the repository root, named
-by a hash of the sources and flags: an edited source rebuilds on first
-use, an unchanged one is reused.  A failed build raises with nvcc's
+by a hash of the sources (``*.cu`` and the ``*.cuh`` headers they
+include) and flags: an edited source or header rebuilds on first use, an
+unchanged one is reused.  A failed build raises with nvcc's
 output.
 
 Each C entry point takes raw device pointers and the CUDA stream as
@@ -82,13 +83,18 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    """Build the kernel library if its sources changed; return its path."""
+def fingerprint() -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    lib = BUILD_DIR / f"librsx_kernels-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    """Build the kernel library if its sources changed; return its path."""
+    lib = BUILD_DIR / f"librsx_kernels-{fingerprint()}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

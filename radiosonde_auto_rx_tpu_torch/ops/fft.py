@@ -5,18 +5,22 @@ Port of ``radiosonde_auto_rx_tpu/ops/pallas_fft.py``:
 * ``fft_abs2(x, win, shift)`` (K2): fused |DFT(win·x)|^2 (+ fftshift).
   The Welch PSD (``detect/psd.py``) sends every segment through here.
 * ``fft(x, win, method)`` (K3): the windowed complex DFT with re/im
-  planes out.  N <= 1024 is one direct DFT (``_direct(abs2=False)`` in
-  the reference); above, ``method="auto"`` is the plain matmul the
-  reference leaves to XLA (``_direct_xla``), and ``method="four-step"``
-  is the Bailey factorization N = 128·N2, whose two DFT stages are the
-  kernel (the reference's ``_cmatmul_pallas``) and whose twiddle and
-  transposes are torch ops.
+  planes out.
 
-Each kernel wrapper dispatches on where its input lies: a CPU tensor
-goes to the plain twin (``fft_abs2_ref``, ``fft_ref``: the matmul form
-of ``_direct_xla``); a CUDA tensor launches the hand-written kernel
-(``csrc/fft_abs2.cu``, ``csrc/fft_planes.cu``) — there is no path from a
-CUDA tensor to the twin.
+Each wrapper dispatches on where its input lies, and there is no path
+from a CUDA tensor to a plain twin:
+
+* A CUDA tensor launches the hand-written kernel (``csrc/fft_abs2.cu``,
+  ``csrc/fft_planes.cu``: one FFT per row in shared memory,
+  ``csrc/fft_smem.cuh``).  One launch covers N = 2 .. 4096, whatever
+  ``method`` says.  ``fft`` above that is the Bailey factorization
+  N = 128·N2 with the kernel as both DFT stages and the twiddle and
+  transposes as torch ops.
+* A CPU tensor goes to the twins ``fft_abs2_ref`` and ``fft_ref``, the
+  matmul form of the reference's ``_direct_xla``.  There ``fft`` follows
+  the reference's ``method``: one matmul up to N = 1024; above, "auto"
+  is one matmul too and "four-step" the factorization with ``fft_ref``
+  as both stages.
 """
 
 from functools import lru_cache
@@ -26,8 +30,8 @@ import torch
 
 from radiosonde_auto_rx_tpu_torch import kernels
 
-MAX_N = 2048          # the kernels stage 4*N floats in shared memory
-DIRECT_MAX = 1024     # fft: one direct DFT up to here (reference _DIRECT_MAX)
+MAX_N = 4096          # the kernels' largest row (csrc/fft_smem.cuh)
+DIRECT_MAX = 1024     # on the CPU "four-step" factors above this
 
 
 @lru_cache(maxsize=8)
@@ -190,7 +194,7 @@ def _launch_planes(x, win):
 
 
 def _dft_rows(x, win):
-    """Direct windowed DFT of [R, 2, n] rows: the twin on the CPU, K3 on
+    """Windowed DFT of whole [R, 2, n] rows: the twin on the CPU, K3 on
     a CUDA tensor."""
     if x.device.type == "cpu":
         return fft_ref(x, win)
@@ -223,13 +227,15 @@ def _four_step(x, n: int):
 def fft(x, win=None, method: str = "auto"):
     """Batched complex FFT.  x: [B, 2, N] float32 planes or complex
     [B, N]; optional window [N].  Returns [B, 2, N] float32 planes, bins
-    in natural order.  ``method``: "auto" (one direct DFT for N <= 1024,
-    the plain matmul above) or "four-step" (the factored path for
-    N > 1024)."""
+    in natural order.  A CUDA tensor is one transform of the whole row
+    up to N = 4096 and the factored path above.  On the CPU ``method``
+    chooses as in the reference: "auto" is one transform of any N,
+    "four-step" the factored path for N > 1024."""
     x, w, n = _planes_in(x, win)
-    if n <= DIRECT_MAX:
+    if x.device.type == "cuda":
+        direct = n <= MAX_N
+    else:
+        direct = n <= DIRECT_MAX or method != "four-step"
+    if direct:
         return _dft_rows(x, w)
-    xw = x if w is None else x * w
-    if method == "four-step":
-        return _four_step(xw, n)
-    return fft_ref(xw)
+    return _four_step(x if w is None else x * w, n)

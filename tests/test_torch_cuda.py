@@ -62,11 +62,15 @@ def test_k1_matches_twin(dev, name, c):
     assert float(err) <= 1e-5
 
 
-@pytest.mark.parametrize("n", [2, 64, 512, 2048])
+POWERS_OF_TWO = [2 ** k for k in range(1, 13)]      # up to fft.MAX_N
+
+
+@pytest.mark.parametrize("n", POWERS_OF_TWO)
 @pytest.mark.parametrize("shift", [True, False])
-def test_k2_matches_twin(dev, n, shift):
+@pytest.mark.parametrize("b", [5, 293])      # no multiple of a block's rows
+def test_k2_matches_twin(dev, n, shift, b):
     g = torch.Generator(device=dev).manual_seed(n)
-    x = torch.randn(7, 2, n, generator=g, device=dev)
+    x = torch.randn(b, 2, n, generator=g, device=dev)
     win = torch.rand(n, generator=g, device=dev) + 0.5
     before = kernels.launches["fft_abs2"]
     got = fft.fft_abs2(x, win, shift)
@@ -77,9 +81,11 @@ def test_k2_matches_twin(dev, n, shift):
     assert float(err.max()) <= 1e-4
 
 
-def test_k2_reads_strided_welch_view(dev):
-    x = torch.randn(3, 2, 40 * 1024, device=dev)
+@pytest.mark.parametrize("offset", [0, 3])   # 3: rows from an odd float
+def test_k2_reads_strided_welch_view(dev, offset):
+    x = torch.randn(3, 2, offset + 40 * 1024, device=dev)[..., offset:]
     view = x.reshape(3, 2, 40, 1024)[..., :256]
+    assert (view.data_ptr() % 16 == 0) == (offset == 0)
     win = torch.ones(256, device=dev)
     got = fft.fft_abs2(view, win, True)
     rows = view.permute(0, 2, 1, 3).reshape(120, 2, 256).contiguous()
@@ -88,16 +94,20 @@ def test_k2_reads_strided_welch_view(dev):
         fft.fft_abs2(rows, win, True).cpu().numpy())
 
 
-@pytest.mark.parametrize("n,method", [(2, "auto"), (64, "auto"),
-                                      (1024, "auto"), (2048, "four-step"),
-                                      (4096, "four-step")])
-def test_k3_matches_twin(dev, n, method):
+# one launch up to the kernels' largest row by either method; two (the
+# factorization's stages) above 4096
+@pytest.mark.parametrize("n,method,launches", [
+    *[(n, "auto", 1) for n in POWERS_OF_TWO],
+    (1024, "four-step", 1), (2048, "four-step", 1), (4096, "four-step", 1),
+    (8192, "auto", 2), (8192, "four-step", 2)])
+@pytest.mark.parametrize("b", [5, 293])
+def test_k3_matches_twin(dev, n, method, launches, b):
     g = torch.Generator(device=dev).manual_seed(n)
-    x = torch.randn(9, 2, n, generator=g, device=dev)
+    x = torch.randn(b, 2, n, generator=g, device=dev)
     win = torch.rand(n, generator=g, device=dev) + 0.5
     before = kernels.launches["fft"]
     got = fft.fft(x, win, method)
-    assert kernels.launches["fft"] == before + (2 if n > 1024 else 1)
+    assert kernels.launches["fft"] == before + launches
     want = fft.fft_ref(x * win)
     torch.cuda.synchronize()
     mag = torch.hypot(want[:, 0], want[:, 1])
@@ -106,11 +116,24 @@ def test_k3_matches_twin(dev, n, method):
     assert float((diff / (mag + rms)).max()) <= 1e-4
 
 
-def test_k3_reads_complex_and_strided_rows(dev):
-    x = torch.randn(6, 2, 3 * 256, device=dev)[..., 256:512]
+@pytest.mark.parametrize("start", [256, 257])   # 257: from an odd float
+def test_k3_reads_complex_and_strided_rows(dev, start):
+    x = torch.randn(6, 2, 3 * 256, device=dev)[..., start:start + 256]
     z = torch.complex(x[:, 0], x[:, 1])
     np.testing.assert_allclose(fft.fft(x).cpu().numpy(),
                                fft.fft(z).cpu().numpy(), rtol=0, atol=1e-4)
+
+
+def test_fft_auto_above_1024_launches_the_kernel(dev):
+    """``fft`` on a CUDA tensor never takes the plain matmul: at N = 2048
+    "auto" is one launch of the kernel."""
+    x = torch.randn(4, 2, 2048, device=dev)
+    before = kernels.launches["fft"]
+    got = fft.fft(x, method="auto")
+    assert kernels.launches["fft"] == before + 1
+    want = fft.fft_ref(x)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 def test_detector_cuda_matches_cpu(dev):
@@ -147,8 +170,8 @@ def test_kernels_refuse_bad_input(dev):
     with pytest.raises(ValueError):
         fft.fft(torch.zeros(2, 2, 96, device=dev))
     with pytest.raises(ValueError):
-        fft.fft_abs2(torch.zeros(2, 2, 4096, device=dev),
-                     torch.ones(4096, device=dev))
+        fft.fft_abs2(torch.zeros(2, 2, 8192, device=dev),
+                     torch.ones(8192, device=dev))
     with pytest.raises(ValueError):
         fft.fft_abs2(torch.zeros(2, 2, 96, device=dev),
                      torch.ones(96, device=dev))

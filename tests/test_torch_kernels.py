@@ -125,6 +125,10 @@ def test_wrappers_never_fall_back_off_cpu():
                      torch.ones(64, device=meta))
     with pytest.raises(ValueError):
         fft.fft(torch.zeros(2, 2, 64, device=meta))
+    # above N = 1024 too, by either method: no plain matmul off the CPU
+    for n, method in ((2048, "auto"), (2048, "four-step"), (8192, "auto")):
+        with pytest.raises(ValueError):
+            fft.fft(torch.zeros(2, 2, n, device=meta), method=method)
     assert kernels.launches == {"freq_est_sf": 0, "fft_abs2": 0, "fft": 0}
 
 
@@ -135,3 +139,21 @@ def test_kernel_library_is_built_lazily():
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     names = {p.name for p in kernels._sources()}
     assert {"fsk_sf.cu", "fft_abs2.cu", "fft_planes.cu"} <= names
+
+
+def test_an_edited_header_rebuilds_the_library(tmp_path, monkeypatch):
+    """The library's name hashes the ``.cuh`` headers with the ``.cu``
+    sources: K2 and K3 are thin files around ``fft_smem.cuh``."""
+    import shutil
+    src = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, src)
+    monkeypatch.setattr(kernels, "CSRC", src)
+    before = kernels.fingerprint()
+    assert kernels.fingerprint() == before
+    with open(src / "fft_smem.cuh", "a") as f:
+        f.write("// edited\n")
+    edited = kernels.fingerprint()
+    assert edited != before
+    with open(src / "fft_abs2.cu", "a") as f:
+        f.write("// edited\n")
+    assert kernels.fingerprint() not in (before, edited)
