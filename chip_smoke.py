@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profile-only     (phase 6's profile alone)
 
 Phases, in order; any failure raises (non-zero exit, traceback):
 
@@ -9,9 +10,16 @@ Phases, in order; any failure raises (non-zero exit, traceback):
    one process per source, all at once, into ``build/kernels/``) and
    print the build time.
 2. Hold each hand-written kernel against its plain PyTorch twin on the
-   card: K1 (FSK frequency-estimator pass) at the shapes the main path
-   below gives it (RS41 with 2 channels, DFM at 50 kHz with 1), then
-   RS41 and DFM with 16 channels and the MTS01 and M20 geometries; K2
+   card.  The scan kernel ``fsk_scan`` (the whole buffered FSK demod,
+   one launch a call, K1 as its spectral stage) against ``fsk_scan_ref``
+   on 1 s of modulated signal with noise at the main path's shapes (RS41
+   with 2 channels, DFM at 50 kHz with 1), then RS41 with 16, M20 and
+   MTS01 with 4, M10 (odd n) and an FSK4 config with 2, once from the
+   initial state with probe outputs and once from a carried state; K1
+   alone (``freq_est_sf``, a thin kernel around the same stage) at the
+   shapes the main path gives the stage, then wider batches and other
+   chains, and on its own path (``fsk_demod_block``, the per-window
+   demod, counters zeroed just before and read just after); K2
    (|FFT|^2 of the Welch PSD) at N = 2048 on the sparse-Welch view of
    1 capture (the main path's 292 segments) and of 10 (2920), both
    timed, and on the half-overlapped Welch tilings of a capture that
@@ -23,11 +31,14 @@ Phases, in order; any failure raises (non-zero exit, traceback):
    are counted.  Print each error against its tolerance, each kernel's
    time (device time, with the launches queued ahead of the card, and
    the time of a call when the wrapper's Python sets the pace) beside
-   its twin's, the one PyTorch call that computes the same function from the same
-   planes and window (cuFFT; none for K1), and the bound: the larger of
-   the function's least float32 operations (each DFT as an FFT,
-   5 N log2 N) over 67 TFLOP/s and its bytes (inputs read once, outputs
-   written once) over 3.35 TB/s.
+   its twin's (the scan's twin: the profiler's device time, since its
+   thousands of launches cannot be queued ahead), the one PyTorch call
+   that computes the same function from the same planes and window
+   (cuFFT; none for K1 or the scan), the bound (the larger of the
+   function's least float32 operations, each DFT as an FFT, 5 N log2 N,
+   over 67 TFLOP/s and its bytes, inputs read once and outputs written
+   once, over 3.35 TB/s) and, for the scan, the microseconds a demod
+   block (each channel is a serial chain of demod blocks).
 3. Synthesize 4 s of one 2.4 MHz capture at 402.5 MHz (cs16 wire format,
    ~0.002 RMS noise) carrying an RS41 on a channel center, an RS41
    +10 kHz off grid and a DFM on a channel center.  The signals come
@@ -42,10 +53,15 @@ Phases, in order; any failure raises (non-zero exit, traceback):
    DFM decodes only from the 2 s blocks — in the reference package too.
 5. Check: both RS41s decoded from the 1 s blocks and all three sondes
    from the 2 s blocks, each with its encoded serial and a position
-   within 1e-4 deg; both kernels launched on that run; the fused steady
-   path served the channels; the same blocks through a CPU ``Station``
-   (the plain twins) give the same telemetry.
-6. Time one steady block (scan and no-scan) on the card.
+   within 1e-4 deg; the scan kernel launched exactly once for each demod
+   call (counted by a wrapper around the callers' ``fsk_demod_stream``),
+   K1 never on its own, K2 at least once; the fused steady path served
+   the channels; the same blocks through a CPU ``Station`` (the plain
+   twins) give the same telemetry.
+6. Time 12 steady blocks (scan and no-scan) on the card, check one scan
+   launch a type group a block, then profile 4 more with torch.profiler:
+   kernel launches, device busy time, launch API and demod host time
+   per block (``--profile-only`` runs this profile alone).
 7. Detection: hold the CUDA detector (``StationStep.confirm`` +
    ``decide_confirmed`` on the three sondes' rows of the first block)
    against its CPU path; then drive a ``Station(device="cuda")`` with no
@@ -54,14 +70,15 @@ Phases, in order; any failure raises (non-zero exit, traceback):
    are detected with their types and channels, that both RS41s decode
    from the 1 s blocks and all three from the 2 s blocks, and that a CPU
    ``Station`` detects the same tasks block by block and decodes the
-   same telemetry.  Print the ``detections`` stat, K2's launches and the
-   wall time of the block that runs ``confirm``.
+   same telemetry, with the launches checked as in phase 5.  Print the
+   ``detections`` stat, the launches and the wall time of the block that
+   runs ``confirm``.
 
 The second-to-last line is a JSON object of per-kernel results (times
 at the main path's shapes, bound, library-call time, the largest error
-of all the checks, the
-detection path's launch counts for K1 and K2 and K3's phase's; K2 and
-K3 also list every shape timed), the last line ``{"ok": true, "device": {...}}``.
+of all the checks; launches: the scan's and K2's on the detection path,
+K1's on its own path, K3's in its phase; the scan, K2 and K3 also list
+every shape timed), the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before printing any
 result.
 """
@@ -83,6 +100,18 @@ RS41_TS = 1_755_600_000          # fixed epoch -> identical frames per run
 K1_TOL = 1e-5                    # max |kernel - twin| / max |twin|
 K2_TOL = 1e-4                    # per bin, |kernel - twin| / (|twin| + row mean)
 K3_TOL = 1e-4                    # per bin, |kernel - twin| / (|twin| + row RMS)
+# fsk_scan and the per-window demod against their twins: soft decisions,
+# spectra and tone magnitudes to 1e-4 of their peak (float32 sums in
+# another order: the FFT against the DFT matrix product, the tree
+# reductions against torch's); bits, tone estimates and nin equal
+SCAN_TOL = 1e-4
+# fsk_scan's phase-2 shapes: the main path's (the two RS41s in one call,
+# the DFM alone), then wider batches and the other geometries (M10's odd
+# n = 745, MTS01's ndft 512, an FSK4 config)
+SCAN_SHAPES = (("RS41", 2), ("DFM", 1), ("RS41", 16), ("M20", 4),
+               ("MTS01", 4), ("M10", 2), ("FSK4", 2))
+FSK4_CFG = dict(fs=48000, rs=2400, m=4, p=5, nsym=100, est_min=-10000,
+                est_max=10000)
 # K3's phase: (N, rows, method, kernel launches expected): one launch up
 # to the kernel's largest row (4096), two above (the factored path's two
 # DFT stages)
@@ -292,6 +321,31 @@ def _time_ms(fn, reps: int = 20, ahead: bool = True) -> float:
                        "the card")
 
 
+def _device_events(prof):
+    """The device activities (kernels, copies, fills) of a profile."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _device_busy_ms(fn, reps: int = 3) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls after a warm-up: the
+    sum of its device activities' spans under torch.profiler (one stream,
+    so they do not overlap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in _device_events(prof))
+    if not busy:
+        raise RuntimeError("the profiler saw no device time")
+    return busy / 1e3 / reps
+
+
 def fft_flops(n: int) -> float:
     """Operations of one complex length-``n`` DFT done as an FFT, the
     least work of the function (5 N log2 N; K1's own O(N^2) DFT does
@@ -342,6 +396,248 @@ def check_k1(dev, name, cfg, c, seed=0):
         raise AssertionError(f"K1 {name}: disagrees with its twin")
     return dict(max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def cfg_of(name: str):
+    """The demod configuration of a chain of the station's table (or of
+    the FSK4 test configuration)."""
+    from radiosonde_auto_rx_tpu_torch.demod.fsk import FSKConfig
+    from radiosonde_auto_rx_tpu_torch.station.chains import CHAIN_TABLE, \
+        _demod_cfg
+    if name == "FSK4":
+        return FSKConfig(**FSK4_CFG)
+    ch = CHAIN_TABLE[name]
+    return _demod_cfg(ch.get("resample_to", 48000), ch["rs"],
+                      ch.get("est", 10000), ch.get("mask", 0))
+
+
+def fsk_signal(cfg, channels: int, t_samples: int, seed: int = 0,
+               ebno_db: float = 12.0):
+    """[C, 2, T] float32 planes of random bits at ``cfg``'s rate: GFSK
+    (M = 2) or FSK (M = 4) at the mask's tone spacing (else at the lesser
+    of 2 Rs and the search half-width), each channel 300 Hz further off,
+    with AWGN at ``ebno_db`` (the port's copy of ``demod/modulate.py``)."""
+    from radiosonde_auto_rx_tpu_torch.demod.modulate import (
+        add_awgn, fsk_mod, gfsk_mod)
+    rng = np.random.default_rng(seed)
+    spacing = cfg.tone_spacing or min(2 * cfg.rs, cfg.est_max)
+    bps = cfg.bits_per_symbol
+    rows = []
+    for i in range(channels):
+        bits = rng.integers(0, 2, (t_samples // cfg.ts + 1) * bps)
+        f0 = 300.0 * (i % 8) - 1000.0
+        if cfg.m == 4:
+            iq = fsk_mod(bits, cfg.fs, cfg.rs, 4, f0 - 1.5 * spacing, spacing)
+        else:
+            iq = gfsk_mod(bits, cfg.fs, cfg.rs, 2, f0, spacing)
+        rows.append(add_awgn(iq[:t_samples], ebno_db, cfg.fs, cfg.rs, bps,
+                             rng=rng))
+    x = np.stack(rows)
+    return np.stack([x.real, x.imag], axis=1).astype(np.float32)
+
+
+def scan_bound(cfg, c: int, nb: int):
+    """The scan's least work for ``c`` channels of ``nb`` demod blocks:
+    bytes (the input span read once; soft decisions, bits, per-block
+    stats and the state written once) and operations (per block and
+    channel: the hops' windowed FFTs, |X| and the weighted sum; the
+    downconvert of every window sample for every tone, the coarse
+    rotation, the integrate-and-dump, the timing line, the resampling
+    and the Eb/N0 sums)."""
+    m, nd, nf, p = cfg.m, cfg.ndft, cfg.numffts, cfg.p
+    nps, ni = cfg.nmem // cfg.tsp, (cfg.nsym + 1) * p
+    per_block = (nf * (fft_flops(nd) + 2.0 * nd + 5.0 * nd)
+                 + m * cfg.nmem * 8.0 + m * nps * 6.0 + m * ni * 2.0 * p
+                 + ni * (4.0 * m + 4.0) + m * cfg.nsym * (4.0 * p + 10.0))
+    span = (nb - 1) * cfg.n + cfg.nmem + 8 * cfg.ts
+    nbits = nb * cfg.nsym * cfg.bits_per_symbol
+    nbytes = (4.0 * c * 2 * span + c * nbits * 5.0 + 4.0 * c * nb * (m + 2)
+              + 4.0 * 2 * c * (cfg.ndft + 4))
+    return bound(c * nb * per_block, nbytes)
+
+
+def scan_diff(got, want, what: str):
+    """The kernel's scan (state, outs) against the twin's: bits, tone
+    estimates, ptr and nin equal; soft decisions, spectra and tone
+    magnitudes finite and within SCAN_TOL of their peak; timing to 1e-4;
+    Eb/N0 within 1e-3 dB + 20 log10(1 + 4e-6 r^2), r = mean/std (the
+    float32 variance E[x^2] - E[x]^2 taken in another summation order;
+    see tests/test_torch_fsk.py).  Returns the largest soft-decision
+    error; raises where they disagree."""
+    import torch
+    (s_g, o_g), (s_w, o_w) = got, want
+    bad = [k for k in ("bits", "f_est") if not torch.equal(o_g[k], o_w[k])]
+    bad += [k for k in ("ptr", "nin") if not torch.equal(s_g[k], s_w[k])]
+    pairs = [("soft", o_g["soft"], o_w["soft"]), ("sf", s_g["sf"], s_w["sf"])]
+    pairs += [(f"probe {k}", o_g[k], o_w[k]) for k in ("sf", "tmag")
+              if k in o_w]
+    errs = {}
+    for k, g, w in pairs:
+        errs[k] = float((g - w).abs().max())
+        if not bool(g.isfinite().all()) or \
+                errs[k] > SCAN_TOL * float(w.abs().max()):
+            bad.append(k)
+    if "timing" in o_w and \
+            float((o_g["timing"] - o_w["timing"]).abs().max()) > 1e-4:
+        bad.append("timing")
+    r2 = 10 ** ((o_w["ebno_db"].double() + 6.0) / 10.0)
+    tol = 1e-3 + 20 * torch.log10(1 + 4e-6 * r2)
+    if bool(((o_g["ebno_db"] - o_w["ebno_db"]).abs() > tol).any()):
+        bad.append("ebno_db")
+    if bad:
+        raise AssertionError(f"fsk_scan {what}: disagrees with its twin "
+                             f"in {bad} (errors {errs})")
+    return errs["soft"]
+
+
+def check_scan(dev, name, cfg, c, seed=0):
+    """The scan kernel against its twin on ``c`` channels of 1 s of
+    modulated signal with noise: once from the initial state with probe
+    outputs, once from the twin's final state (a carried state).  Then
+    the kernel, its call and the twin timed (probe off)."""
+    import torch
+    from radiosonde_auto_rx_tpu_torch.demod import fsk
+    t = cfg.fs
+    x = torch.from_numpy(fsk_signal(cfg, c, t, seed)).to(dev)
+    nb = fsk.fsk_num_blocks_buffered(cfg, t)
+    st0 = fsk.fsk_init_state(cfg, c, dev)
+    want = fsk.fsk_scan_ref(cfg, x, st0, nb, probe=True)
+    err = scan_diff(fsk.fsk_scan(cfg, x, st0, nb, probe=True), want,
+                    f"{name} C={c}")
+    st1 = want[0]
+    err = max(err, scan_diff(fsk.fsk_scan(cfg, x, st1, nb),
+                             fsk.fsk_scan_ref(cfg, x, st1, nb),
+                             f"{name} C={c}, carried state"))
+    torch.cuda.synchronize()
+    ms = _time_ms(lambda: fsk.fsk_scan(cfg, x, st0, nb))
+    call = _time_ms(lambda: fsk.fsk_scan(cfg, x, st0, nb), ahead=False)
+    # the twin's thousands of small launches fill the launch queue, so
+    # it cannot be queued ahead of the card: its device time is the
+    # profiler's sum of its kernels, beside its time at the host's pace
+    plain = _device_busy_ms(lambda: fsk.fsk_scan_ref(cfg, x, st0, nb))
+    plain_call = _time_ms(lambda: fsk.fsk_scan_ref(cfg, x, st0, nb),
+                          reps=3, ahead=False)
+    b_ms, b_by = scan_bound(cfg, c, nb)
+    per_block = ms * 1e3 / nb
+    print(f"fsk_scan {name} C={c} blocks={nb} n={cfg.n} ndft={cfg.ndft} "
+          f"M={cfg.m}: bits, f_est, ptr, nin equal; soft max_abs_err="
+          f"{err:.3e} (tol {SCAN_TOL} of peak; also sf, tmag, Eb/N0; "
+          f"initial and carried state) kernel {ms:.4f} ms ({call:.4f} a "
+          f"call at the host's pace; {per_block:.2f} us per demod block), "
+          f"twin {plain:.4f} ms of device time ({plain_call:.4f} a call at "
+          f"the host's pace), bound {b_ms:.5f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain,
+                plain_call_ms=plain_call, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, us_per_block=per_block)
+
+
+def k1_phase(dev):
+    """K1's own path: ``fsk_demod_block`` (the per-window demod: torch
+    ops around K1's entry ``freq_est_sf``) on one window of the main
+    path's K1 shapes, RS41 with 2 channels and DFM with 1 (counters zeroed
+    just before, read just after), each held against the same block with
+    K1's twin.  Returns K1's launches."""
+    import torch
+    from radiosonde_auto_rx_tpu_torch import kernels
+    from radiosonde_auto_rx_tpu_torch.demod import fsk
+    from radiosonde_auto_rx_tpu_torch.ops.fsk_sf import freq_est_sf_ref
+    cases = []
+    for seed, (name, c) in enumerate((("RS41", 2), ("DFM", 1))):
+        cfg = cfg_of(name)
+        x = torch.from_numpy(fsk_signal(cfg, c, cfg.nmem, seed)).to(dev)
+        cases.append((name, cfg, x, fsk.fsk_init_state(cfg, c, dev)))
+    kernels.reset_launches()
+    outs = [fsk.fsk_demod_block(cfg, x, st)[0] for _, cfg, x, st in cases]
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    for (name, cfg, x, st), got in zip(cases, outs):
+        want = fsk.fsk_demod_block(cfg, x, st, spectral=freq_est_sf_ref)[0]
+        if not (torch.equal(got["bits"], want["bits"]) and
+                torch.equal(got["f_est"], want["f_est"]) and
+                float((got["soft"] - want["soft"]).abs().max()) <=
+                SCAN_TOL * float(want["soft"].abs().max())):
+            raise AssertionError(f"K1 path {name}: the block with K1 "
+                                 f"disagrees with the block with its twin")
+    print(f"phase 2 K1 path (fsk_demod_block on one RS41 C=2 and one DFM "
+          f"C=1 window): launches {launches}; bits and f_est equal to the "
+          f"block with K1's twin, soft within {SCAN_TOL} of peak")
+    if launches["freq_est_sf"] != len(cases):
+        raise AssertionError("fsk_demod_block did not launch K1 once a "
+                             "window")
+    return launches["freq_est_sf"]
+
+
+def check_path_launches(launches, demod_calls: int, path: str):
+    """A station path on the card: the scan kernel launched once for each
+    demod call that demodulates a block, K1 never on its own, K2 at
+    least once."""
+    if launches["fsk_scan"] <= 0 or launches["fsk_scan"] != demod_calls:
+        raise AssertionError(f"{path} path: {launches['fsk_scan']} scan "
+                             f"launches for {demod_calls} demod calls")
+    if launches["freq_est_sf"] or launches["fft_abs2"] <= 0:
+        raise AssertionError(f"{path} path: launches {launches}")
+
+
+class DemodCalls:
+    """Counts the station's ``fsk_demod_stream`` calls that demodulate
+    at least one block (those that launch the scan kernel on a card) and
+    the host time spent inside them: a wrapper in both callers' modules
+    (``parallel/station_step.py``, ``station/station.py``) for the
+    duration of a ``with``."""
+
+    def __enter__(self):
+        from radiosonde_auto_rx_tpu_torch.demod import fsk
+        from radiosonde_auto_rx_tpu_torch.parallel import station_step
+        from radiosonde_auto_rx_tpu_torch.station import station
+        self.calls, self.host_s = 0, 0.0
+        self._mods = (station_step, station)
+        self._orig = station_step.fsk_demod_stream
+
+        def counted(cfg, x, *args, **kw):
+            self.calls += fsk.fsk_num_blocks_buffered(cfg, x.shape[-1]) > 0
+            t0 = time.perf_counter()
+            try:
+                return self._orig(cfg, x, *args, **kw)
+            finally:
+                self.host_s += time.perf_counter() - t0
+        for mod in self._mods:
+            mod.fsk_demod_stream = counted
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self._mods:
+            mod.fsk_demod_stream = self._orig
+
+
+def profile_steady(st, blocks, n: int = 4):
+    """torch.profiler over ``n`` consecutive steady blocks of a station
+    that has run before: per block, the wall (under the profiler), the
+    device busy time (every device activity's span), the kernel launches
+    (``cudaLaunchKernel`` and its variants) and their host time, and the
+    host time inside the demod calls.  Returns a dict."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    launch_names = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cuLaunchKernel", "cuLaunchKernelEx")
+    walls = []
+    with DemodCalls() as dc, profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st.process_captures([blocks[i % len(blocks)]])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    dev_us = sum(e.time_range.elapsed_us() for e in _device_events(prof))
+    launch = [e for e in prof.events() if e.name in launch_names and
+              e.device_type == DeviceType.CPU]
+    return dict(blocks=n, wall_ms=sum(walls) / n,
+                device_busy_ms=(dev_us / 1e3 / n) if dev_us else None,
+                launches=len(launch) / n,
+                launch_host_ms=sum(e.time_range.elapsed_us()
+                                   for e in launch) / 1e3 / n,
+                demod_calls=dc.calls / n, demod_host_ms=dc.host_s * 1e3 / n)
 
 
 def check_k2(dev, captures, seed=0):
@@ -563,14 +859,33 @@ def same_tasks(a, b) -> bool:
 
 # ---------------------------------------------------------------------- #
 
+def profile_only(card: str) -> int:
+    """``--profile-only``: the phase 6 profile alone, on whichever package
+    ``radiosonde_auto_rx_tpu_torch`` resolves to from this script's
+    directory (a copy of this script beside an older tree profiles that
+    tree): a manual-task station, four 1 s blocks to warm it, then
+    ``profile_steady`` over the next four."""
+    from radiosonde_auto_rx_tpu_torch import kernels
+    import torch
+    kernels.library()
+    blocks = split_blocks(synth_stream(N_CHAN, FS_WIDE, SECONDS), FS_WIDE, 1)
+    st = make_station(torch.device("cuda", 0), N_CHAN, FS_WIDE)
+    for blk in blocks:
+        st.process_captures([blk])
+    prof = profile_steady(st, blocks)
+    print(f"card: {card}")
+    print(json.dumps({"profile": prof, "launches": dict(kernels.launches)}))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--profile-only"]:
+        return profile_only(card_line())
     from radiosonde_auto_rx_tpu_torch import kernels
-    from radiosonde_auto_rx_tpu_torch.station.chains import CHAIN_TABLE, \
-        _demod_cfg
     dev = torch.device("cuda", 0)
     if torch.get_float32_matmul_precision() != "highest" or \
             torch.backends.cuda.matmul.allow_tf32:
@@ -589,17 +904,24 @@ def main() -> int:
         print(kernels.build_log["ptxas"].strip())
 
     # 2. kernels against their twins at the main path's shapes
-    def cfg_of(name):
-        ch = CHAIN_TABLE[name]
-        return _demod_cfg(ch.get("resample_to", 48000), ch["rs"],
-                          ch.get("est", 10000), ch.get("mask", 0))
-    # first the shapes the main path below gives K1 (the two RS41s in
-    # one call, the DFM alone), then wider batches and other chains
+    # K1 alone (the scan's spectral stage as its own launch): first the
+    # shapes the main path gives the stage (the two RS41s in one call,
+    # the DFM alone), then wider batches and other chains; then K1's own
+    # path, the per-window demod
     k1 = check_k1(dev, "RS41", cfg_of("RS41"), 2)
     for seed, (name, c) in enumerate((("DFM", 1), ("RS41", 16), ("DFM", 16),
                                       ("MTS01", 4), ("M20", 4)), 1):
         k1["max_abs_err"] = max(k1["max_abs_err"], check_k1(
             dev, name, cfg_of(name), c, seed)["max_abs_err"])
+    k1_launches = k1_phase(dev)
+    scan, shapes = None, []
+    for seed, (name, c) in enumerate(SCAN_SHAPES):
+        res = check_scan(dev, name, cfg_of(name), c, seed)
+        shapes.append(dict(chain=name, channels=c, **{
+            k: v for k, v in res.items() if k != "max_abs_err"}))
+        scan = scan or res
+        scan["max_abs_err"] = max(scan["max_abs_err"], res["max_abs_err"])
+    scan = dict(scan, shapes=shapes)
     k2, k2_wide = check_k2(dev, 1), check_k2(dev, 10, seed=1)
     k2["shapes"] = [dict(n=2048, rows=rows, **{
         k: v for k, v in res.items() if k != "max_abs_err"})
@@ -613,7 +935,8 @@ def main() -> int:
     runs = [split_blocks(stream, FS_WIDE, 1), split_blocks(stream, FS_WIDE, 2)]
     print(f"phase 3 synth: {SECONDS} s of {FS_WIDE} Hz cs16, cut into "
           f"{[len(r) for r in runs]} blocks")
-    results, launches = drive_station(dev, runs, N_CHAN, FS_WIDE)
+    with DemodCalls() as calls:
+        results, launches = drive_station(dev, runs, N_CHAN, FS_WIDE)
     for (st, telems, _), types, blocks in zip(
             results, (("RS41",), ("RS41", "DFM")), runs):
         seen = check_telemetry(telems, N_CHAN, FS_WIDE, types)
@@ -622,10 +945,9 @@ def main() -> int:
               f"stats {st.stats}")
         if st.stats.get("fused_channels", 0) <= 0:
             raise AssertionError("the fused steady path served no channel")
-    print(f"phase 4 kernel launches on the manual-task path: {launches}")
-    for name in ("freq_est_sf", "fft_abs2"):
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} was not launched by the main path")
+    print(f"phase 4 kernel launches on the manual-task path: {launches}; "
+          f"demod calls {calls.calls}")
+    check_path_launches(launches, calls.calls, "manual-task")
     cpu_results, _ = drive_station(torch.device("cpu"), runs, N_CHAN,
                                    FS_WIDE)
     for (_, telems, _), (_, telems_cpu, _) in zip(results, cpu_results):
@@ -637,30 +959,42 @@ def main() -> int:
     st, blocks = results[0][0], runs[0]
 
     # 6. steady block wall time (host clock, each block ends in host
-    # decode, which synchronizes with the device)
+    # decode, which synchronizes with the device), then a profile
     times = {True: [], False: []}
+    groups = len({v["type"] for v in st.active.values()})
     kernels.reset_launches()
-    for i in range(12):
-        scan_next = (st._steady_tick + 1) % int(st.config["scan_every"]) \
-            == 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st.process_captures([blocks[i % len(blocks)]])
-        torch.cuda.synchronize()
-        times[scan_next].append((time.perf_counter() - t0) * 1e3)
-    for scan in (True, False):
-        print(f"phase 6 steady block scan={scan}: median "
-              f"{statistics.median(times[scan]):.2f} ms over "
-              f"{len(times[scan])} blocks ({card})")
+    with DemodCalls() as calls:
+        for i in range(12):
+            scan_next = (st._steady_tick + 1) % \
+                int(st.config["scan_every"]) == 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st.process_captures([blocks[i % len(blocks)]])
+            torch.cuda.synchronize()
+            times[scan_next].append((time.perf_counter() - t0) * 1e3)
+    for scan_blk in (True, False):
+        print(f"phase 6 steady block scan={scan_blk}: median "
+              f"{statistics.median(times[scan_blk]):.2f} ms over "
+              f"{len(times[scan_blk])} blocks ({card})")
     print(f"phase 6 kernel launches over these 12 steady 1 s blocks: "
-          f"{dict(kernels.launches)}")
+          f"{dict(kernels.launches)}; demod calls {calls.calls}, type "
+          f"groups {groups}; host time in the demod calls "
+          f"{calls.host_s * 1e3 / 12:.3f} ms per block")
+    check_path_launches(kernels.launches, calls.calls, "steady")
+    if kernels.launches["fsk_scan"] != 12 * groups:
+        raise AssertionError("a steady block launched the scan other than "
+                             "once a type group")
+    prof = profile_steady(st, blocks)
+    print(f"phase 6 profile of {prof['blocks']} steady 1 s blocks, per "
+          f"block: {json.dumps(prof)} ({card})")
 
     # 7. detection: the same captures through a station with no task
     check_detector(dev, stream)
     want = [(typ, CENTER + f) for typ, _, f, _, _ in
             sondes_for(N_CHAN, FS_WIDE)]
-    d_results, d_launches = drive_station(dev, runs, N_CHAN, FS_WIDE,
-                                          manual=False)
+    with DemodCalls() as d_calls:
+        d_results, d_launches = drive_station(dev, runs, N_CHAN, FS_WIDE,
+                                              manual=False)
     for (st, telems, per_block), types, blocks in zip(
             d_results, (("RS41",), ("RS41", "DFM")), runs):
         check_detections(per_block, want)
@@ -670,11 +1004,9 @@ def main() -> int:
               f"{st.stats['detections']}, tasks {per_block[-1][0]}, "
               f"frames {seen}, stats {st.stats}; block wall ms "
               f"{[round(ms, 2) for _, ms in per_block]} ({card})")
-    print(f"phase 7 kernel launches on the detection path: {d_launches}")
-    for name in ("freq_est_sf", "fft_abs2"):
-        if d_launches[name] <= 0:
-            raise AssertionError(f"{name} was not launched by the "
-                                 f"detection path")
+    print(f"phase 7 kernel launches on the detection path: {d_launches}; "
+          f"demod calls {d_calls.calls}")
+    check_path_launches(d_launches, d_calls.calls, "detection")
     d_cpu, _ = drive_station(torch.device("cpu"), runs, N_CHAN, FS_WIDE,
                              manual=False)
     for (_, telems, pb), (_, telems_cpu, pb_cpu) in zip(d_results, d_cpu):
@@ -704,9 +1036,12 @@ def main() -> int:
 
     entries = []
     for name, src, rep, res, n in (
+            ("fsk_scan", "radiosonde_auto_rx_tpu_torch/csrc/fsk_scan.cu",
+             "radiosonde_auto_rx_tpu/ops/pallas_fsk.py:84 + the demod block "
+             "around it, radiosonde_auto_rx_tpu/demod/fsk.py:306 in the "
+             "lax.scan of :497", scan, d_launches["fsk_scan"]),
             ("freq_est_sf", "radiosonde_auto_rx_tpu_torch/csrc/fsk_sf.cu",
-             "radiosonde_auto_rx_tpu/ops/pallas_fsk.py:84", k1,
-             d_launches["freq_est_sf"]),
+             "radiosonde_auto_rx_tpu/ops/pallas_fsk.py:84", k1, k1_launches),
             ("fft_abs2", "radiosonde_auto_rx_tpu_torch/csrc/fft_abs2.cu",
              "radiosonde_auto_rx_tpu/ops/pallas_fft.py:162", k2,
              d_launches["fft_abs2"]),
@@ -715,7 +1050,8 @@ def main() -> int:
              k3_launches)):
         entries.append(dict(name=name, route="cuda", source=src,
                             replaces=rep, launches=n, **res))
-    entries[2]["path"] = "ops.fft.fft"
+    entries[1]["path"] = "demod.fsk.fsk_demod_block"
+    entries[3]["path"] = "ops.fft.fft"
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -1,103 +1,97 @@
-// K1: the FSK frequency estimator's spectral pass, sf_new = sf*decay +
-// sum_h w_h * |DFT(win * x[s_h : s_h + ndft])|, for every channel.
+// K1: the FSK frequency estimator's spectral pass on its own, sf_new =
+// sf*decay + sum_h w_h * |DFT(win * x[s_h : s_h + ndft])| (fftshifted), for
+// every channel: one launch, one 256-thread block a channel.
 //
 // Replaces radiosonde_auto_rx_tpu/ops/pallas_fsk.py::_sf_kernel (the
-// pallas_call in freq_est_sf).  Same math as the einsum path of
-// demod/fsk.py::_freq_est: the Hann window and the fftshift are folded
-// into the [ndft, ndft] matrices wc/ws (demod/fsk.py::_dft_mats), so
-//   re_k = sum_n xr[s+n] wc[n,k] + xi[s+n] ws[n,k]
-//   im_k = sum_n xi[s+n] wc[n,k] - xr[s+n] ws[n,k].
+// pallas_call in freq_est_sf).  The demod itself runs this stage inside the
+// persistent scan (fsk_scan.cu); this thin kernel around the same device
+// function (fsk_block.cuh::spectral_pass) is the stage's unit check and the
+// entry ops/fsk_sf.py::freq_est_sf.
 //
-// What bounds it on an H100: latency, not FLOPs or bytes.  The station
-// calls it once per demod block with the channels of ONE sonde type
-// (1-16; RS41: 45 hops x 128 bins x 128 taps x 4 FMA = 2.9 M FMAs per
-// channel), and the matrix reads wc/ws (128 KB at ndft 128) come from L2.
-// A first version with one block per (channel, 128 bins) looping over
-// all hops ran 1.2 ms per call at 2 channels: 2 blocks on 132 SMs, each
-// thread a 5,760-step chain of L2 loads.
+// What bounds it on an H100: latency.  The function is a few KB of input
+// (bound 0.0001-0.0002 ms on bytes) and the station gives it 1-16 channels,
+// i.e. 1-16 blocks on 132 SMs; a block's time is its chain of hop groups,
+// each one row FFT in shared memory (three radix stages at ndft 128) and
+// the ordered sum into the bins.  The first port computed the DFT directly
+// (ndft^2 per hop out of L2) in two launches with a [C, nf, ndft] scratch
+// between them; this one does a fourteenth of the operations (ndft 128),
+// keeps the spectra in shared memory and sums the hops in order in the same
+// block.
 //
-// Design: one block per (tile of 128 bins, hop, channel), one thread per
-// bin, so a call spreads over C*nf blocks (90 for 2 RS41 channels).  The
-// block stages its hop's window slice in shared memory (reads of it are
-// broadcasts); wc/ws are read down a column (neighbouring threads,
-// neighbouring addresses) with the tap loop unrolled so several loads
-// are in flight.  Each block writes w_h*|X| to a [C, nf, ndft] scratch
-// (46 KB for 2 RS41 channels) that a second small kernel sums over the
-// hops in a fixed order and adds to sf*decay — deterministic, and the
-// spectra themselves still never leave registers.  Plain f32 FMA, no
-// tensor cores or TF32 (parity first).
-#include <cuda_runtime.h>
+// The window is read from wc's DC column (wc[n, ndft/2] = win[n] cos 0, the
+// twin's own float32 values): the wrapper passes the twin's [ndft, ndft]
+// operands, and ws carries nothing the FFT needs.
+#include "fsk_block.cuh"
 
 namespace {
 
-constexpr int kBins = 128;  // output bins per block, one per thread
+using namespace rsx;
+using namespace rsx::fsk;
 
-__global__ void __launch_bounds__(kBins)
-sf_hop_kernel(const float* __restrict__ xw, const float* __restrict__ wc,
-              const float* __restrict__ ws, const int* __restrict__ starts,
-              const float* __restrict__ weights, float* __restrict__ part,
-              int nmem, int ndft, int nf) {
-  extern __shared__ float seg[];  // [2, ndft]: this hop's re, im
-  const int h = blockIdx.y;
-  const int c = blockIdx.z;
-  const int k = blockIdx.x * kBins + threadIdx.x;
-  const float* xr = xw + static_cast<size_t>(c) * 2 * nmem + starts[h];
-  const float* xi = xr + nmem;
-  for (int i = threadIdx.x; i < ndft; i += blockDim.x) {
-    seg[i] = xr[i];
-    seg[ndft + i] = xi[i];
-  }
+template <int LOG2N>
+__global__ void __launch_bounds__(kThreads)
+freq_est_sf_kernel(const float* __restrict__ xw, const float* __restrict__ sf,
+                   const float* __restrict__ wc, const int* __restrict__ starts,
+                   const float* __restrict__ weights, float decay,
+                   const float* __restrict__ tw, float* __restrict__ out,
+                   int nmem, int nf) {
+  using S = SpecPlan<LOG2N>;
+  constexpr int N = S::N;
+  extern __shared__ float smem[];
+  float* tc = smem;
+  float* ts = tc + S::F::PN;
+  float* win = ts + S::F::PN;
+  float* rows = win + N;
+  stage_table<LOG2N>(tw, tc, ts);
+  for (int i = threadIdx.x; i < N; i += kThreads) win[i] = wc[i * N + N / 2];
   __syncthreads();
-  if (k >= ndft) return;
-  float re = 0.f, im = 0.f;
-#pragma unroll 8
-  for (int n = 0; n < ndft; ++n) {
-    const float cv = wc[n * ndft + k];
-    const float sv = ws[n * ndft + k];
-    const float a = seg[n], b = seg[ndft + n];
-    re = fmaf(a, cv, re);
-    re = fmaf(b, sv, re);
-    im = fmaf(b, cv, im);
-    im = fmaf(-a, sv, im);
-  }
-  part[(static_cast<size_t>(c) * nf + h) * ndft + k] =
-      weights[h] * sqrtf(re * re + im * im);
+  const int c = blockIdx.x;
+  const float* xr = xw + static_cast<long long>(c) * 2 * nmem;
+  spectral_pass<LOG2N>(xr, xr + nmem, starts, weights, nf, win, decay,
+                       sf + c * N, out + c * N, tc, ts, rows);
 }
 
-__global__ void __launch_bounds__(kBins)
-sf_sum_kernel(const float* __restrict__ part, const float* __restrict__ sf,
-              float decay, float* __restrict__ out, int ndft, int nf) {
-  const int c = blockIdx.y;
-  const int k = blockIdx.x * kBins + threadIdx.x;
-  if (k >= ndft) return;
-  const float* p = part + static_cast<size_t>(c) * nf * ndft + k;
-  float acc = 0.f;
-  for (int h = 0; h < nf; ++h) acc += p[static_cast<size_t>(h) * ndft];
-  const size_t o = static_cast<size_t>(c) * ndft + k;
-  out[o] = fmaf(sf[o], decay, acc);
+template <int LOG2N>
+cudaError_t launch(const float* xw, const float* sf, const float* wc,
+                   const int* starts, const float* weights, float decay,
+                   const float* tw, float* out, int C, int nmem, int nf,
+                   cudaStream_t stream) {
+  using S = SpecPlan<LOG2N>;
+  const size_t smem =
+      sizeof(float) * (2 * S::F::PN + S::N + S::ROWS * S::ROW);
+  freq_est_sf_kernel<LOG2N><<<C, kThreads, smem, stream>>>(
+      xw, sf, wc, starts, weights, decay, tw, out, nmem, nf);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// xw [C, 2, nmem], sf/out [C, ndft], wc/ws [ndft, ndft], part
-// [C, nf, ndft] scratch, all f32 contiguous; starts [nf] int32 and
-// weights [nf] f32 on the device.
+// xw [C, 2, nmem], sf/out [C, ndft], wc [ndft, ndft] (the twin's windowed
+// DFT operand), tw [2, ndft] (cos, sin of 2 pi m / ndft), all f32
+// contiguous on the device; starts [nf] int32 (each + ndft <= nmem) and
+// weights [nf] f32 on the device.  ndft: 64, 128, 256 or 512.
 extern "C" int rsx_freq_est_sf(const float* xw, const float* sf,
-                               const float* wc, const float* ws,
-                               const int* starts, const float* weights,
-                               float decay, float* part, float* out, int C,
-                               int nmem, int ndft, int nf, int device,
-                               void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+                               const float* wc, const int* starts,
+                               const float* weights, float decay,
+                               const float* tw, float* out, int C, int nmem,
+                               int ndft, int nf, int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = (ndft + kBins - 1) / kBins;
-  const size_t smem = 2 * static_cast<size_t>(ndft) * sizeof(float);
-  sf_hop_kernel<<<dim3(tiles, nf, C), kBins, smem, s>>>(
-      xw, wc, ws, starts, weights, part, nmem, ndft, nf);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  sf_sum_kernel<<<dim3(tiles, C), kBins, 0, s>>>(part, sf, decay, out, ndft,
-                                                  nf);
-  return cudaGetLastError();
+  switch (ndft) {
+    case 64:
+      return launch<6>(xw, sf, wc, starts, weights, decay, tw, out, C, nmem,
+                       nf, s);
+    case 128:
+      return launch<7>(xw, sf, wc, starts, weights, decay, tw, out, C, nmem,
+                       nf, s);
+    case 256:
+      return launch<8>(xw, sf, wc, starts, weights, decay, tw, out, C, nmem,
+                       nf, s);
+    case 512:
+      return launch<9>(xw, sf, wc, starts, weights, decay, tw, out, C, nmem,
+                       nf, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

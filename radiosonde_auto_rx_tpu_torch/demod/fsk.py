@@ -3,11 +3,13 @@
 Port of ``radiosonde_auto_rx_tpu/demod/fsk.py`` (codec2 fsk.c re-derived
 as block-parallel tensor math — see that module's notes).  IQ is
 float32 ``[C, 2, T]`` planes; all state carries a leading ``[C]`` axis.
-The frequency estimator's spectral pass always goes through
-``ops.fsk_sf.freq_est_sf`` (K1: the CUDA kernel on a CUDA tensor, its
-einsum twin on a CPU tensor).  The reference's ``lax.scan`` over blocks
-is a Python loop here: every op of a block is queued on the device
-without a host sync.
+A CPU tensor runs the plain twin ``fsk_scan_ref``: the reference's
+``lax.scan`` over blocks as a Python loop of torch ops, with the spectral
+pass as K1's twin ``ops.fsk_sf.freq_est_sf_ref``.  A CUDA tensor runs
+``fsk_scan``: the whole buffered scan, every demod block of every
+channel, as one launch of the hand-written kernel ``csrc/fsk_scan.cu``
+(K1 as its spectral stage; ``csrc/fsk_block.cuh``); there is no path
+from a CUDA tensor to the twin.
 
 Only the buffered (gather-free) scan is ported; ``buffered=False``
 raises.  Soft-decision conventions match the reference exactly:
@@ -22,7 +24,10 @@ import math
 import numpy as np
 import torch
 
-from radiosonde_auto_rx_tpu_torch.ops.fsk_sf import freq_est_sf
+from radiosonde_auto_rx_tpu_torch import kernels
+from radiosonde_auto_rx_tpu_torch.ops.fft import _twiddles
+from radiosonde_auto_rx_tpu_torch.ops.fsk_sf import KERNEL_NDFT, _tables, \
+    freq_est_sf, freq_est_sf_ref
 
 TWO_PI = float(np.float32(2.0 * np.pi))
 
@@ -210,6 +215,14 @@ class _Consts:
         # flat index of symbol k's integrator at shift 0: (k+1)*P
         self.sym_base = (torch.arange(cfg.nsym, device=device) + 1) * cfg.p
         self.win_idx = torch.arange(cfg.nmem, device=device)
+        # the scan kernel's tables: the Hann window (wc's DC column, the
+        # twin's own float32 values), FFT twiddles, hop starts and weights,
+        # the timing rotation [2, ni]
+        self.win = self.wc[:, cfg.ndft // 2].contiguous()
+        self.tw = _twiddles(cfg.ndft, device)
+        self.starts_t, self.weights_t = _tables(self.starts, self.weights,
+                                                device)
+        self.rot = torch.stack([self.rot_re, self.rot_im]).contiguous()
 
 
 @lru_cache(maxsize=64)
@@ -221,13 +234,14 @@ def _consts(cfg: FSKConfig, device: torch.device) -> _Consts:
 # frequency estimation
 # ----------------------------------------------------------------------------
 
-def _freq_est(cfg: FSKConfig, xw, sf):
+def _freq_est(cfg: FSKConfig, xw, sf, spectral=freq_est_sf):
     """Update the spectral EMA and estimate the M tone frequencies.
 
-    xw: [C, 2, nmem] float32 window;  sf: [C, ndft] EMA carry.
+    xw: [C, 2, nmem] float32 window;  sf: [C, ndft] EMA carry;
+    spectral: K1's entry ``freq_est_sf`` or its twin.
     Returns (f_est [C, M] in Hz, new sf)."""
     k = _consts(cfg, xw.device)
-    sf_new = freq_est_sf(xw, sf, k.wc, k.ws, k.starts, k.weights, k.decay)
+    sf_new = spectral(xw, sf, k.wc, k.ws, k.starts, k.weights, k.decay)
     st, en = cfg.est_range
     if cfg.freq_est_type == 1:
         f_est = _mask_estimate(cfg, sf_new, st, en)
@@ -254,23 +268,29 @@ def _peak_estimate(cfg: FSKConfig, sf, valid):
     return freqi.float() * (cfg.fs / ndft)
 
 
-def _mask_estimate(cfg: FSKConfig, sf, st: int, en: int):
-    """Correlate Sf with a comb at known tone spacing (fsk.c:549-581)."""
-    ndft = cfg.ndft
-    # comb bin offsets: 0..2 plus round(m*spacing*ndft/fs)-1 .. +1+2
+def _mask_offsets(cfg: FSKConfig):
+    """The mask comb's bin offsets in the reference's summation order
+    (``set`` iteration: 0..2 plus round(m*spacing*ndft/fs)-1 .. +1+2)
+    and the comb's length."""
     offs = [0, 1, 2]
     bin_last = 0
     for mm in range(1, cfg.m):
-        b = int(round(mm * cfg.tone_spacing * ndft / cfg.fs)) - 1
+        b = int(round(mm * cfg.tone_spacing * cfg.ndft / cfg.fs)) - 1
         offs += [b, b + 1, b + 2]
         bin_last = b
-    len_mask = bin_last + 3
+    return tuple(set(offs)), bin_last + 3
+
+
+def _mask_estimate(cfg: FSKConfig, sf, st: int, en: int):
+    """Correlate Sf with a comb at known tone spacing (fsk.c:549-581)."""
+    ndft = cfg.ndft
+    offs, len_mask = _mask_offsets(cfg)
     nb = en - len_mask - st
     if nb <= 0:
         raise ValueError("est range too narrow for mask correlator")
     corr = torch.zeros((sf.shape[0], nb), dtype=torch.float32,
                        device=sf.device)
-    for o in set(offs):          # the reference's summation order
+    for o in offs:               # the reference's summation order
         corr = corr + sf[:, st + o:st + o + nb]
     b_max = torch.argmax(corr, dim=-1) + st                       # [C]
     foff = (b_max - ndft // 2).float() * (cfg.fs / ndft)
@@ -282,8 +302,10 @@ def _mask_estimate(cfg: FSKConfig, sf, st: int, en: int):
 # block demod core
 # ----------------------------------------------------------------------------
 
-def fsk_demod_block(cfg: FSKConfig, xw, state: FSKState, probe: bool = False):
-    """Demodulate one window.
+def fsk_demod_block(cfg: FSKConfig, xw, state: FSKState, probe: bool = False,
+                    spectral=freq_est_sf):
+    """Demodulate one window (plain torch ops around K1: ``spectral`` is
+    ``freq_est_sf``, the kernel on a CUDA tensor, or its twin).
 
     xw: [C, 2, nmem] float32 IQ planes.
     Returns (out dict, new partial state).  out contains:
@@ -296,7 +318,7 @@ def fsk_demod_block(cfg: FSKConfig, xw, state: FSKState, probe: bool = False):
     kc = _consts(cfg, xw.device)
     xw = xw.float().contiguous()
 
-    f_est, sf_new = _freq_est(cfg, xw, state["sf"])
+    f_est, sf_new = _freq_est(cfg, xw, state["sf"], spectral)
     xr, xi = xw[:, 0], xw[:, 1]                                   # [C, nmem]
 
     # --- tone downconvert + integrate-and-dump (fsk.c:644-668) ---
@@ -406,35 +428,56 @@ def fsk_demod_block(cfg: FSKConfig, xw, state: FSKState, probe: bool = False):
 # stream demod: loop over blocks
 # ----------------------------------------------------------------------------
 
-def _fsk_demod_scan_buffered(cfg: FSKConfig, x, state: FSKState,
-                             n_blocks: int, probe: bool = False,
-                             slack_ts: int = 8):
-    """Buffered scan: the reference's rolling [C, 2, nmem + slack]
-    buffer advanced by a SHARED ``n`` samples per block, with each
-    channel's ±ts/2 clock adjustments moving only its ``off`` pointer
-    (wrapping back toward the slack center by a grid-aligned jump,
-    ``_slack_wrap``).  At block b that buffer holds
-    ``x[..., b*n : b*n + nmem + slack]``, so the window is gathered from
-    ``x`` at ``b*n + off`` directly — the same samples, no buffer copy.
+SLACK_TS = 8          # the rolling buffer's slack, in symbols
 
-    x: [C, 2, T] float32.  Returns (state, outs) with every ``outs``
-    entry stacked as [n_blocks, C, ...]."""
+
+def _offsets(cfg: FSKConfig):
+    """The window offset's start, largest value and slack-wrap jump:
+    every offset sits on the +-ts//2 adjustment grid."""
     half_ts = cfg.ts // 2
-    slack = slack_ts * cfg.ts
+    n_steps = SLACK_TS * cfg.ts // half_ts
+    off_max = n_steps * half_ts
+    return (n_steps // 2) * half_ts, off_max, \
+        _slack_wrap(cfg.ts, half_ts, off_max)
+
+
+def _stream_layout(C: int, outs: dict) -> dict:
+    """[n_blocks, C, ...] per-block outputs -> the stream layout: soft
+    and bits [C, nb*nsym*bps], f_est [C, nb, M], the rest [C, nb, ...]."""
+    out = {k: v.transpose(0, 1) for k, v in outs.items() if k != "nin_next"}
+    out["soft"] = out["soft"].reshape(C, -1)
+    out["bits"] = out["bits"].reshape(C, -1)
+    return out
+
+
+def fsk_scan_ref(cfg: FSKConfig, x, state: FSKState, n_blocks: int,
+                 probe: bool = False):
+    """Plain twin of ``fsk_scan``: the buffered scan as a Python loop of
+    torch ops (``fsk_demod_block`` with K1's twin), on any device.
+
+    The reference's rolling [C, 2, nmem + slack] buffer is advanced by a
+    SHARED ``n`` samples per block, with each channel's ±ts/2 clock
+    adjustments moving only its ``off`` pointer (wrapping back toward the
+    slack center by a grid-aligned jump, ``_slack_wrap``).  At block b
+    that buffer holds ``x[..., b*n : b*n + nmem + slack]``, so the window
+    is gathered from ``x`` at ``b*n + off`` directly — the same samples,
+    no buffer copy.
+
+    x: [C, 2, T] float32.  Returns (state, outs) in the stream layout:
+    soft/bits [C, n_blocks*nsym*bps], f_est [C, n_blocks, M], ebno_db and
+    ppm [C, n_blocks]; with ``probe`` also sf [C, n_blocks, ndft], timing
+    [C, n_blocks] and tmag [C, n_blocks, M, nsym]."""
     C = x.shape[0]
     kc = _consts(cfg, x.device)
-    # every offset must sit on the +-ts//2 adjustment grid
-    n_steps = slack // half_ts
-    off_max = n_steps * half_ts
-    wrap = _slack_wrap(cfg.ts, half_ts, off_max)
-    off = torch.full((C,), (n_steps // 2) * half_ts, dtype=torch.int64,
-                     device=x.device)
+    off0, off_max, wrap = _offsets(cfg)
+    off = torch.full((C,), off0, dtype=torch.int64, device=x.device)
     st = state
     outs = []
     for b in range(n_blocks):
         idx = (b * cfg.n + off)[:, None] + kc.win_idx[None, :]   # [C, nmem]
         win = torch.gather(x, 2, idx[:, None, :].expand(C, 2, cfg.nmem))
-        out, newp = fsk_demod_block(cfg, win, st, probe=probe)
+        out, newp = fsk_demod_block(cfg, win, st, probe=probe,
+                                    spectral=freq_est_sf_ref)
         off = off + (out["nin_next"] - cfg.n)
         off = torch.where(off > off_max, off - wrap, off)
         off = torch.where(off < 0, off + wrap, off)
@@ -443,7 +486,7 @@ def _fsk_demod_scan_buffered(cfg: FSKConfig, x, state: FSKState,
                       ptr=st["ptr"] + out["nin_next"], nin=out["nin_next"])
         outs.append(out)
     stacked = {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
-    return st, stacked
+    return st, _stream_layout(C, stacked)
 
 
 def _slack_wrap(ts: int, half_ts: int, off_max: int) -> int:
@@ -456,9 +499,139 @@ def _slack_wrap(ts: int, half_ts: int, off_max: int) -> int:
 
 
 def fsk_num_blocks_buffered(cfg: FSKConfig, t_samples: int,
-                            slack_ts: int = 8) -> int:
+                            slack_ts: int = SLACK_TS) -> int:
     w = cfg.nmem + slack_ts * cfg.ts
     return max(0, (t_samples - w) // cfg.n)
+
+
+# ----------------------------------------------------------------------------
+# the scan kernel (csrc/fsk_scan.cu)
+# ----------------------------------------------------------------------------
+
+# The C entry's three flat operand arrays, in the order of
+# csrc/fsk_block.cuh's ScanPtr, ScanInt and ScanFloat.
+SCAN_POINTERS = ("x", "sf_in", "timing_in", "ppm_in", "ptr_in",
+                 "sf", "timing", "ppm", "ptr", "nin",
+                 "soft", "bits", "f_est", "ebno_db", "ppm_blocks",
+                 "probe_sf", "probe_timing", "probe_tmag",
+                 "win", "tw", "starts", "weights", "rot")
+MAX_MASK_OFFS = 12
+SCAN_INTS = ("C", "T", "n_blocks", "m", "p", "nsym", "ts", "ndft", "nf",
+             "est_type", "est_st", "est_en", "est_space", "mask_nb", "q",
+             "na", "off0", "off_max", "wrap", "slack", "n_offs",
+             *(f"offs{i}" for i in range(MAX_MASK_OFFS)))
+SCAN_FLOATS = ("fs", "bin_hz", "tone_spacing", "decay")
+
+
+def _check_state(cfg: FSKConfig, state: FSKState, C: int, device):
+    want = dict(sf=((C, cfg.ndft), torch.float32),
+                timing=((C,), torch.float32), ppm=((C,), torch.float32),
+                ptr=((C,), torch.int32))
+    for k, (shape, dt) in want.items():
+        t = state[k]
+        if t.shape != shape or t.dtype != dt or t.device != device or \
+                not t.is_contiguous():
+            raise ValueError(f"fsk_scan: state[{k!r}] must be a contiguous "
+                             f"{dt} tensor of shape {shape} on {device}")
+
+
+def _scan_operands(cfg: FSKConfig, x, state: FSKState, n_blocks: int,
+                   probe: bool = False):
+    """The scan kernel's operands for x [C, 2, T] (on any device: the
+    CPU tests hand them to the kernel source compiled for the CPU).
+
+    Returns (tensors by SCAN_POINTERS, None where absent; ints by
+    SCAN_INTS; floats by SCAN_FLOATS; (new state, outs)) where the new
+    state and outs are the output tensors the kernel fills, in the
+    layout of ``fsk_scan_ref``."""
+    if cfg.m not in (2, 4) or cfg.ndft not in KERNEL_NDFT:
+        raise ValueError(f"fsk_scan kernel: M={cfg.m}, ndft={cfg.ndft} "
+                         f"(takes M 2 or 4, ndft {KERNEL_NDFT})")
+    C, two, T = x.shape
+    dev = x.device
+    if two != 2 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("fsk_scan kernel: x must be contiguous float32 "
+                         "[C, 2, T] planes")
+    w = cfg.nmem + SLACK_TS * cfg.ts
+    if n_blocks < 1 or C < 1 or (n_blocks - 1) * cfg.n + w > T:
+        raise ValueError(f"fsk_scan kernel: {n_blocks} blocks do not fit "
+                         f"[{C}, 2, {T}]")
+    _check_state(cfg, state, C, dev)
+    k = _consts(cfg, dev)
+    M, nsym, nb = cfg.m, cfg.nsym, n_blocks
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    new = dict(sf=torch.empty((C, cfg.ndft), **f32),
+               timing=torch.empty((C,), **f32),
+               ppm=torch.empty((C,), **f32),
+               ptr=torch.empty((C,), **i32), nin=torch.empty((C,), **i32))
+    nbits = nb * nsym * cfg.bits_per_symbol
+    outs = dict(soft=torch.empty((C, nbits), **f32),
+                bits=torch.empty((C, nbits), dtype=torch.uint8, device=dev),
+                f_est=torch.empty((C, nb, M), **f32),
+                ebno_db=torch.empty((C, nb), **f32),
+                ppm=torch.empty((C, nb), **f32))
+    if probe:
+        outs.update(sf=torch.empty((C, nb, cfg.ndft), **f32),
+                    timing=torch.empty((C, nb), **f32),
+                    tmag=torch.empty((C, nb, M, nsym), **f32))
+    tensors = dict(
+        x=x, sf_in=state["sf"], timing_in=state["timing"],
+        ppm_in=state["ppm"], ptr_in=state["ptr"],
+        sf=new["sf"], timing=new["timing"], ppm=new["ppm"], ptr=new["ptr"],
+        nin=new["nin"], soft=outs["soft"], bits=outs["bits"],
+        f_est=outs["f_est"], ebno_db=outs["ebno_db"],
+        ppm_blocks=outs["ppm"], probe_sf=outs.get("sf"),
+        probe_timing=outs.get("timing"), probe_tmag=outs.get("tmag"),
+        win=k.win, tw=k.tw, starts=k.starts_t, weights=k.weights_t,
+        rot=k.rot)
+    st, en = cfg.est_range
+    mask_nb, offs = 0, ()
+    if cfg.freq_est_type == 1:
+        offs, len_mask = _mask_offsets(cfg)
+        mask_nb = en - len_mask - st
+        if mask_nb <= 0:
+            raise ValueError("est range too narrow for mask correlator")
+    off0, off_max, wrap = _offsets(cfg)
+    ints = dict(C=C, T=T, n_blocks=nb, m=M, p=cfg.p, nsym=nsym, ts=cfg.ts,
+                ndft=cfg.ndft, nf=cfg.numffts, est_type=cfg.freq_est_type,
+                est_st=st, est_en=en, est_space=cfg.est_space_bins,
+                mask_nb=mask_nb, q=k.Q, na=k.nA, off0=off0, off_max=off_max,
+                wrap=wrap, slack=SLACK_TS * cfg.ts, n_offs=len(offs),
+                **{f"offs{i}": (offs[i] if i < len(offs) else 0)
+                   for i in range(MAX_MASK_OFFS)})
+    floats = dict(fs=float(cfg.fs), bin_hz=float(cfg.fs / cfg.ndft),
+                  tone_spacing=float(cfg.tone_spacing), decay=k.decay)
+    return ([tensors[n] for n in SCAN_POINTERS],
+            [int(ints[n]) for n in SCAN_INTS],
+            [float(floats[n]) for n in SCAN_FLOATS], (new, outs))
+
+
+def fsk_scan(cfg: FSKConfig, x, state: FSKState, n_blocks: int,
+             probe: bool = False):
+    """The whole buffered scan as one launch of ``csrc/fsk_scan.cu``: one
+    256-thread block per channel walks the demod blocks with its carry in
+    shared memory.  Same arguments and result as ``fsk_scan_ref``; x and
+    the state must be contiguous and on one CUDA device (M 2 or 4, ndft
+    64-512), else it raises."""
+    import ctypes
+    if x.device.type != "cuda":
+        raise ValueError(f"fsk_scan: no kernel for device {x.device}")
+    ptrs, ints, floats, (new, outs) = _scan_operands(cfg, x, state,
+                                                     n_blocks, probe)
+    p_arr = (ctypes.c_void_p * len(ptrs))(
+        *[None if t is None else t.data_ptr() for t in ptrs])
+    i_arr = (ctypes.c_int * len(ints))(*ints)
+    f_arr = (ctypes.c_float * len(floats))(*floats)
+    lib = kernels.library()
+    err = lib.rsx_fsk_scan(
+        ctypes.cast(p_arr, ctypes.c_void_p),
+        ctypes.cast(i_arr, ctypes.c_void_p),
+        ctypes.cast(f_arr, ctypes.c_void_p), x.device.index or 0,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(err, "fsk_scan")
+    kernels.launches["fsk_scan"] += 1
+    return new, outs
 
 
 def fsk_demod_stream(cfg: FSKConfig, x, device, state: FSKState | None = None,
@@ -469,7 +642,9 @@ def fsk_demod_stream(cfg: FSKConfig, x, device, state: FSKState | None = None,
     Returns (soft [C, total_bits], bits [C, total_bits], stats dict,
     state).  Stats are [C, n_blocks] (f_est [C, n_blocks, M]); with
     ``probe=True`` also ``sf`` [C, nb, ndft], ``timing`` [C, nb] and
-    ``tmag`` [C, nb, M, nsym].  Only the buffered scan is ported."""
+    ``tmag`` [C, nb, M, nsym].  A CPU tensor runs the plain scan
+    ``fsk_scan_ref``, a CUDA tensor one launch of the scan kernel
+    ``fsk_scan``.  Only the buffered scan is ported."""
     if not buffered:
         raise NotImplementedError(
             "the unbuffered FSK scan is not ported (ROADMAP.md queue 1, "
@@ -485,19 +660,11 @@ def fsk_demod_stream(cfg: FSKConfig, x, device, state: FSKState | None = None,
     if nb == 0:
         empty = torch.zeros((C, 0), dtype=torch.float32, device=x.device)
         return empty, empty.to(torch.uint8), {}, state
-    state, outs = _fsk_demod_scan_buffered(cfg, x, state, nb, probe)
-    # outs.* are [n_blocks, C, ...] -> concat along time
-    soft = outs["soft"].transpose(0, 1).reshape(C, -1)
-    bits = outs["bits"].transpose(0, 1).reshape(C, -1)
-    stats = dict(
-        f_est=outs["f_est"].transpose(0, 1),
-        ebno_db=outs["ebno_db"].transpose(0, 1),
-        ppm=outs["ppm"].transpose(0, 1),
-    )
-    if probe:
-        stats["sf"] = outs["sf"].transpose(0, 1)
-        stats["timing"] = outs["timing"].transpose(0, 1)
-        stats["tmag"] = outs["tmag"].transpose(0, 1)
+    if x.device.type == "cpu":
+        state, outs = fsk_scan_ref(cfg, x, state, nb, probe)
+    else:
+        state, outs = fsk_scan(cfg, x.contiguous(), state, nb, probe)
+    soft, bits = outs.pop("soft"), outs.pop("bits")
     if squeeze:
         soft, bits = soft[0], bits[0]
-    return soft, bits, stats, state
+    return soft, bits, outs, state

@@ -42,10 +42,13 @@ _L = ctypes.c_longlong
 
 # C symbol -> argtypes (every pointer and the stream as void*)
 SIGNATURES = {
-    # xw, sf, wc, ws, starts, weights, decay, part, out,
+    # xw, sf, wc, starts, weights, decay, tw, out,
     # C, nmem, ndft, nf, device, stream
-    "rsx_freq_est_sf": [_P, _P, _P, _P, _P, _P, _F, _P, _P,
+    "rsx_freq_est_sf": [_P, _P, _P, _P, _P, _F, _P, _P,
                         _I, _I, _I, _I, _I, _P],
+    # pointers [23], ints [33], floats [4] (host arrays in the order of
+    # demod/fsk.py's SCAN_POINTERS, SCAN_INTS, SCAN_FLOATS), device, stream
+    "rsx_fsk_scan": [_P, _P, _P, _I, _P],
     # x, s_outer, s_seg, s_plane, nseg, rows, win, tw, out, n, shift,
     # device, stream
     "rsx_fft_abs2": [_P, _L, _L, _L, _I, _I, _P, _P, _P, _I, _I, _I, _P],
@@ -54,7 +57,7 @@ SIGNATURES = {
     "rsx_error_string": [_I],
 }
 
-launches = {"freq_est_sf": 0, "fft_abs2": 0, "fft": 0}
+launches = {"freq_est_sf": 0, "fft_abs2": 0, "fft": 0, "fsk_scan": 0}
 build_log = {}                 # "ptxas": nvcc's -Xptxas -v report
 
 _lock = threading.Lock()

@@ -7,9 +7,11 @@ the demod window, their magnitudes, and the closed-form EMA
 
 ``freq_est_sf`` dispatches on where ``xw`` lies: a CPU tensor goes to
 the plain twin ``freq_est_sf_ref`` (the einsum form of
-``demod/fsk.py::_freq_est``); a CUDA tensor launches the hand-written
-kernel ``csrc/fsk_sf.cu`` — there is no path from a CUDA tensor to the
-twin.
+``demod/fsk.py::_freq_est``); a CUDA tensor is one launch of the
+hand-written kernel ``csrc/fsk_sf.cu``, a thin kernel around the spectral
+stage that the demod scan (``csrc/fsk_scan.cu``) runs inside its own
+launch (``csrc/fsk_block.cuh``: one FFT per hop, the hops summed in order
+in shared memory).  There is no path from a CUDA tensor to the twin.
 """
 
 from functools import lru_cache
@@ -17,6 +19,7 @@ from functools import lru_cache
 import torch
 
 from radiosonde_auto_rx_tpu_torch import kernels
+from radiosonde_auto_rx_tpu_torch.ops.fft import _twiddles
 
 
 def freq_est_sf_ref(xw, sf, wc, ws, starts, weights, decay):
@@ -42,6 +45,9 @@ def _tables(starts: tuple, weights: tuple, device: torch.device):
             torch.tensor(weights, dtype=torch.float32, device=device))
 
 
+KERNEL_NDFT = (64, 128, 256, 512)    # the FFT sizes the kernels take
+
+
 def _launch(xw, sf, wc, ws, starts, weights, decay):
     C, two, nmem = xw.shape
     ndft = sf.shape[-1]
@@ -54,6 +60,9 @@ def _launch(xw, sf, wc, ws, starts, weights, decay):
             ws.shape != (ndft, ndft):
         raise ValueError("freq_est_sf kernel: expect xw [C, 2, nmem], "
                          "sf [C, ndft], wc/ws [ndft, ndft]")
+    if ndft not in KERNEL_NDFT:
+        raise ValueError(f"freq_est_sf kernel: ndft={ndft} not in "
+                         f"{KERNEL_NDFT}")
     starts = tuple(int(s) for s in starts)
     weights = tuple(float(w) for w in weights)
     nf = len(starts)
@@ -62,14 +71,14 @@ def _launch(xw, sf, wc, ws, starts, weights, decay):
     if min(starts) < 0 or max(starts) + ndft > nmem:
         raise ValueError("freq_est_sf kernel: hop outside the window")
     st, wt = _tables(starts, weights, xw.device)
-    part = torch.empty((C, nf, ndft), dtype=torch.float32, device=xw.device)
     out = torch.empty_like(sf)
     if C:
         lib = kernels.library()
         err = lib.rsx_freq_est_sf(
-            xw.data_ptr(), sf.data_ptr(), wc.data_ptr(), ws.data_ptr(),
-            st.data_ptr(), wt.data_ptr(), float(decay), part.data_ptr(),
-            out.data_ptr(), C, nmem, ndft, nf, xw.device.index or 0,
+            xw.data_ptr(), sf.data_ptr(), wc.data_ptr(), st.data_ptr(),
+            wt.data_ptr(), float(decay),
+            _twiddles(ndft, xw.device).data_ptr(), out.data_ptr(), C, nmem,
+            ndft, nf, xw.device.index or 0,
             torch.cuda.current_stream(xw.device).cuda_stream)
         kernels.check(err, "freq_est_sf")
         kernels.launches["freq_est_sf"] += 1
@@ -81,8 +90,9 @@ def freq_est_sf(xw, sf, wc, ws, starts, weights, decay):
 
     xw: [C, 2, nmem] float32 window planes; sf: [C, ndft] EMA carry;
     wc/ws: [ndft, ndft] windowed-DFT operands (fftshifted columns, from
-    ``demod.fsk._dft_mats``); starts: hop offsets into the window;
-    weights/decay: closed-form per-hop EMA coefficients.
+    ``demod.fsk._dft_mats``; the kernel, an FFT, reads the Hann window
+    from wc's DC column, wc[:, ndft/2]); starts: hop offsets into the
+    window; weights/decay: closed-form per-hop EMA coefficients.
     Returns sf_new [C, ndft]."""
     if xw.device.type == "cpu":
         return freq_est_sf_ref(xw, sf, wc, ws, starts, weights, decay)

@@ -1,7 +1,10 @@
 // A stand-in for <cuda_runtime.h> that lets g++ compile the device code of
-// radiosonde_auto_rx_tpu_torch/csrc/fft_smem.cuh for the CPU: one block at
-// a time, every CUDA thread a host thread, __syncthreads() a barrier.
-// Used only by fft_rows_host.cc (tests/test_torch_fft.py).
+// radiosonde_auto_rx_tpu_torch/csrc/fft_smem.cuh and fsk_block.cuh for the
+// CPU: one block at a time, every CUDA thread a host thread,
+// __syncthreads() a barrier, the round-to-nearest intrinsics plain float
+// arithmetic (x86-64 without -mfma contracts nothing).  Used by
+// fft_rows_host.cc (tests/test_torch_fft.py) and fsk_scan_host.cc
+// (tests/test_torch_fsk.py).
 #pragma once
 #include <pthread.h>
 
@@ -22,6 +25,10 @@ struct ShimIdx {
 extern thread_local ShimIdx threadIdx, blockIdx, gridDim;
 extern pthread_barrier_t shim_barrier;
 inline void __syncthreads() { pthread_barrier_wait(&shim_barrier); }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;

@@ -10,16 +10,22 @@ host without it it runs alone:
 Tolerances: K1 to 1e-5 of the largest twin value, K2 per bin to 1e-4
 of (|twin| + the row's mean power), K3 per bin to 1e-4 of (|twin| + the
 row's RMS) — float32 FMA on both sides, in another summation order; the
-detector's scores to ``chip_smoke.DET_TOL`` (its normalization's float32
-running sums cancel, and the CUDA scan sums in another order; see
-chip_smoke.py).
+scan kernel ``fsk_scan`` as ``chip_smoke.scan_diff`` (bits, tone
+estimates, ptr and nin equal; soft decisions, spectra and tone magnitudes
+to ``chip_smoke.SCAN_TOL`` of their peak; the Eb/N0 bound), on modulated
+signals with noise (on pure noise the timing estimate is ill-conditioned
+and may legitimately differ); the detector's scores to
+``chip_smoke.DET_TOL`` (its normalization's float32 running sums cancel,
+and the CUDA scan sums in another order; see chip_smoke.py).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from radiosonde_auto_rx_tpu_torch import kernels
+from radiosonde_auto_rx_tpu_torch.demod import fsk
 from radiosonde_auto_rx_tpu_torch.demod.fsk import _consts
 from radiosonde_auto_rx_tpu_torch.detect.scanner import SondeDetector
 from radiosonde_auto_rx_tpu_torch.ops import fft, fsk_sf
@@ -60,6 +66,75 @@ def test_k1_matches_twin(dev, name, c):
     torch.cuda.synchronize()
     err = (got - want).abs().max() / want.abs().max()
     assert float(err) <= 1e-5
+
+
+# every ported FSK chain of the station's table, and an FSK4 config
+SCAN_CHAINS = sorted({"RS41", "RS92", "DFM", "M10", "M20", "LMS6", "IMET5",
+                      "MEISEI", "MRZ", "MTS01", "RD94RD41"}) + ["FSK4"]
+
+
+@pytest.mark.parametrize("c", [1, 2, 16])
+@pytest.mark.parametrize("name", SCAN_CHAINS)
+def test_fsk_scan_matches_twin(dev, name, c):
+    """One launch per call, against the twin with probe outputs, then from
+    the twin's final state (a carried state)."""
+    cfg = cs.cfg_of(name)
+    t = max(cfg.fs // 2, cfg.nmem + 8 * cfg.ts + 2 * cfg.n)   # 2+ blocks
+    x = torch.from_numpy(cs.fsk_signal(cfg, c, t, seed=c)).to(dev)
+    nb = fsk.fsk_num_blocks_buffered(cfg, t)
+    st0 = fsk.fsk_init_state(cfg, c, dev)
+    before = kernels.launches["fsk_scan"]
+    got = fsk.fsk_scan(cfg, x, st0, nb, probe=True)
+    assert kernels.launches["fsk_scan"] == before + 1
+    want = fsk.fsk_scan_ref(cfg, x, st0, nb, probe=True)
+    cs.scan_diff(got, want, name)
+    cs.scan_diff(fsk.fsk_scan(cfg, x, want[0], nb),
+                 fsk.fsk_scan_ref(cfg, x, want[0], nb), name)
+
+
+def test_fsk_demod_stream_launches_the_scan_once(dev, monkeypatch):
+    """On a CUDA tensor the stream demod is one scan launch and reaches
+    neither the plain scan nor K1's twin; short input gives empty outputs
+    without a launch, as on the CPU."""
+    from radiosonde_auto_rx_tpu_torch.ops import fsk_sf as sf_mod
+
+    def refuse(*a, **k):
+        raise AssertionError("a twin was called on a CUDA tensor")
+    monkeypatch.setattr(fsk, "fsk_scan_ref", refuse)
+    monkeypatch.setattr(fsk, "freq_est_sf_ref", refuse)
+    monkeypatch.setattr(sf_mod, "freq_est_sf_ref", refuse)
+    cfg = cs.cfg_of("RS41")
+    x = torch.from_numpy(cs.fsk_signal(cfg, 3, cfg.fs, seed=5)).to(dev)
+    before = dict(kernels.launches)
+    soft, bits, stats, state = fsk.fsk_demod_stream(cfg, x, dev, probe=True)
+    assert kernels.launches["fsk_scan"] == before["fsk_scan"] + 1
+    assert kernels.launches["freq_est_sf"] == before["freq_est_sf"]
+    nb = fsk.fsk_num_blocks_buffered(cfg, cfg.fs)
+    assert soft.shape == bits.shape == (3, nb * cfg.nsym)
+    assert set(stats) == {"f_est", "ebno_db", "ppm", "sf", "timing", "tmag"}
+    assert stats["tmag"].shape == (3, nb, 2, cfg.nsym)
+    soft, bits, stats, _ = fsk.fsk_demod_stream(
+        cfg, torch.zeros(3, 2, cfg.nmem, device=dev), dev)
+    assert soft.shape == (3, 0) and bits.dtype == torch.uint8 and not stats
+    assert kernels.launches["fsk_scan"] == before["fsk_scan"] + 1
+
+
+def test_fsk_scan_refuses_bad_input(dev):
+    cfg = cs.cfg_of("RS41")
+    x = torch.from_numpy(cs.fsk_signal(cfg, 2, cfg.fs)).to(dev)
+    nb = fsk.fsk_num_blocks_buffered(cfg, cfg.fs)
+    st = fsk.fsk_init_state(cfg, 2, dev)
+    with pytest.raises(ValueError):           # wrong dtype
+        fsk.fsk_scan(cfg, x.double(), st, nb)
+    with pytest.raises(ValueError):           # not contiguous
+        fsk.fsk_scan(cfg, x[..., ::2], st, nb // 2)
+    with pytest.raises(ValueError):           # more blocks than the input
+        fsk.fsk_scan(cfg, x, st, nb + 2)
+    with pytest.raises(ValueError):           # state on the CPU
+        fsk.fsk_scan(cfg, x, fsk.fsk_init_state(cfg, 2, "cpu"), nb)
+    wide = fsk.FSKConfig(fs=48000, rs=300, m=2, p=5, nsym=100)  # ndft 2048
+    with pytest.raises(ValueError):
+        fsk.fsk_demod_stream(wide, torch.zeros(1, 2, 48000, device=dev), dev)
 
 
 POWERS_OF_TWO = [2 ** k for k in range(1, 13)]      # up to fft.MAX_N
@@ -191,9 +266,11 @@ def test_station_cuda_equals_cpu(dev):
     n, fs = 8, 384_000
     stream = cs.synth_stream(n, fs, 2)
     runs = [cs.split_blocks(stream, fs, 1)]
-    gpu, launches = cs.drive_station(dev, runs, n, fs)
+    with cs.DemodCalls() as calls:
+        gpu, launches = cs.drive_station(dev, runs, n, fs)
     cpu, _ = cs.drive_station(torch.device("cpu"), runs, n, fs)
-    assert launches["freq_est_sf"] > 0 and launches["fft_abs2"] > 0
+    assert launches["fsk_scan"] == calls.calls > 0
+    assert launches["freq_est_sf"] == 0 and launches["fft_abs2"] > 0
     got = sorted(map(cs._key, gpu[0][1]))
     assert got and got == sorted(map(cs._key, cpu[0][1]))
 
@@ -205,10 +282,12 @@ def test_detecting_station_cuda_equals_cpu(dev):
     n, fs = 8, 384_000
     stream = cs.synth_stream(n, fs, 2)
     runs = [cs.split_blocks(stream, fs, 1)]
-    gpu, launches = cs.drive_station(dev, runs, n, fs, manual=False)
+    with cs.DemodCalls() as calls:
+        gpu, launches = cs.drive_station(dev, runs, n, fs, manual=False)
     cpu, _ = cs.drive_station(torch.device("cpu"), runs, n, fs,
                               manual=False)
-    assert launches["freq_est_sf"] > 0 and launches["fft_abs2"] > 0
+    assert launches["fsk_scan"] == calls.calls > 0
+    assert launches["freq_est_sf"] == 0 and launches["fft_abs2"] > 0
     assert gpu[0][0].stats["detections"] == 3
     for (t_g, _), (t_c, _) in zip(gpu[0][2], cpu[0][2]):
         assert cs.same_tasks(t_g, t_c)

@@ -33,6 +33,14 @@ PEAK = dict(fs=48000, rs=4800, m=2, p=5, nsym=300, est_min=-5000,
             est_max=5000)
 FSK4 = dict(fs=48000, rs=2400, m=4, p=5, nsym=100, est_min=-10000,
             est_max=10000)
+# station chain geometries (station/chains.py::_demod_cfg): M10's odd
+# n = 745 at 48.08 kHz, MTS01's ndft 512, DFM at 50 kHz
+M10 = dict(fs=48080, rs=9616, m=2, p=5, nsym=149, est_min=-10000,
+           est_max=10000)
+MTS01 = dict(fs=48000, rs=1200, m=2, p=5, nsym=300, est_min=-5000,
+             est_max=5000)
+DFM = dict(fs=50000, rs=2500, m=2, p=5, nsym=300, est_min=-5000,
+           est_max=5000)
 
 
 def _iq(kw, seed, n_bits, c=1, noisy=False):
@@ -83,7 +91,7 @@ def _assert_close(r, p):
 
 
 def test_config_and_dft_mats_exact():
-    for kw in (RS41, PEAK, FSK4):
+    for kw in (RS41, PEAK, FSK4, M10, MTS01, DFM):
         c_r, c_p = ref.FSKConfig(**kw), port.FSKConfig(**kw)
         for f in ("ts", "tsp", "n", "nmem", "ndft", "tc", "est_space_bins",
                   "numffts", "bits_per_symbol", "est_range",
@@ -100,6 +108,9 @@ def test_config_and_dft_mats_exact():
     ("rs41_mask_gfsk_noise", RS41, 6000, True),
     ("peak", PEAK, 6000, False),
     ("fsk4", FSK4, 4000, False),
+    ("m10_odd_n", M10, 700, False),
+    ("mts01_ndft512", MTS01, 1000, False),
+    ("dfm_50k", DFM, 1300, True),
 ])
 def test_stream_matches_reference(name, kw, n_bits, noisy):
     iq = _iq(kw, seed=11, n_bits=n_bits, c=2, noisy=noisy)

@@ -129,7 +129,11 @@ def test_wrappers_never_fall_back_off_cpu():
     for n, method in ((2048, "auto"), (2048, "four-step"), (8192, "auto")):
         with pytest.raises(ValueError):
             fft.fft(torch.zeros(2, 2, n, device=meta), method=method)
-    assert kernels.launches == {"freq_est_sf": 0, "fft_abs2": 0, "fft": 0}
+    with pytest.raises(ValueError):
+        port_fsk.fsk_demod_stream(port_fsk.FSKConfig(**RS41),
+                                  torch.zeros(1, 2, 9000), meta)
+    assert kernels.launches == {"freq_est_sf": 0, "fft_abs2": 0, "fft": 0,
+                                "fsk_scan": 0}
 
 
 def test_kernel_library_is_built_lazily():
@@ -138,7 +142,8 @@ def test_kernel_library_is_built_lazily():
     assert kernels._lib is None
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     names = {p.name for p in kernels._sources()}
-    assert {"fsk_sf.cu", "fft_abs2.cu", "fft_planes.cu"} <= names
+    assert {"fsk_sf.cu", "fsk_scan.cu", "fft_abs2.cu",
+            "fft_planes.cu"} <= names
 
 
 def test_an_edited_header_rebuilds_the_library(tmp_path, monkeypatch):

@@ -82,7 +82,7 @@ def test_slice_runs_without_jax():
         assert all(f > 0 for f in run["fused"])
         # CPU tensors take the plain twins: no kernel launches
         assert run["launches"] == {"freq_est_sf": 0, "fft_abs2": 0,
-                                   "fft": 0}
+                                   "fft": 0, "fsk_scan": 0}
     # the task-less station found the three sondes itself
     assert out["False"]["detections"] == [3, 3]
     assert out["True"]["detections"] == [0, 0]
