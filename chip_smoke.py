@@ -1,7 +1,6 @@
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --profile-only     (phase 6's profile alone)
 
 Phases, in order; any failure raises (non-zero exit, traceback):
 
@@ -16,10 +15,10 @@ Phases, in order; any failure raises (non-zero exit, traceback):
    with 2 channels, DFM at 50 kHz with 1), then RS41 with 16, M20 and
    MTS01 with 4, M10 (odd n) and an FSK4 config with 2, once from the
    initial state with probe outputs and once from a carried state; K1
-   alone (``freq_est_sf``, a thin kernel around the same stage) at the
-   shapes the main path gives the stage, then wider batches and other
-   chains, and on its own path (``fsk_demod_block``, the per-window
-   demod, counters zeroed just before and read just after); K2
+   alone through its entry point ``ops.fsk_sf.freq_est_sf`` (a thin
+   kernel around the same stage; counters zeroed just before, read just
+   after) at the shapes the main path gives the stage, then wider
+   batches and other chains; K2
    (|FFT|^2 of the Welch PSD) at N = 2048 on the sparse-Welch view of
    1 capture (the main path's 292 segments) and of 10 (2920), both
    timed, and on the half-overlapped Welch tilings of a capture that
@@ -61,7 +60,7 @@ Phases, in order; any failure raises (non-zero exit, traceback):
 6. Time 12 steady blocks (scan and no-scan) on the card, check one scan
    launch a type group a block, then profile 4 more with torch.profiler:
    kernel launches, device busy time, launch API and demod host time
-   per block (``--profile-only`` runs this profile alone).
+   per block.
 7. Detection: hold the CUDA detector (``StationStep.confirm`` +
    ``decide_confirmed`` on the three sondes' rows of the first block)
    against its CPU path; then drive a ``Station(device="cuda")`` with no
@@ -77,8 +76,8 @@ Phases, in order; any failure raises (non-zero exit, traceback):
 The second-to-last line is a JSON object of per-kernel results (times
 at the main path's shapes, bound, library-call time, the largest error
 of all the checks; launches: the scan's and K2's on the detection path,
-K1's on its own path, K3's in its phase; the scan, K2 and K3 also list
-every shape timed), the last line ``{"ok": true, "device": {...}}``.
+K1's and K3's in their own phases, through their entry points; every
+kernel also lists each shape timed), the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before printing any
 result.
 """
@@ -105,6 +104,11 @@ K3_TOL = 1e-4                    # per bin, |kernel - twin| / (|twin| + row RMS)
 # another order: the FFT against the DFT matrix product, the tree
 # reductions against torch's); bits, tone estimates and nin equal
 SCAN_TOL = 1e-4
+# K1 alone through its entry point: the shapes the main path gives the
+# scan's spectral stage (the two RS41s in one call, the DFM alone), then
+# wider batches and other chains
+K1_SHAPES = (("RS41", 2), ("DFM", 1), ("RS41", 16), ("DFM", 16),
+             ("MTS01", 4), ("M20", 4))
 # fsk_scan's phase-2 shapes: the main path's (the two RS41s in one call,
 # the DFM alone), then wider batches and the other geometries (M10's odd
 # n = 745, MTS01's ndft 512, an FSK4 config)
@@ -363,39 +367,65 @@ def bound(flops: float, nbytes: float):
         (t_bytes, "bytes")
 
 
-def check_k1(dev, name, cfg, c, seed=0):
+def k1_phase(dev):
+    """K1 alone through its entry point ``ops.fsk_sf.freq_est_sf`` at every
+    shape of K1_SHAPES (counters zeroed just before, read just after; no
+    station path launches it, since the scan runs the same stage inside
+    its own launch), then each output held against the twin and each
+    shape timed beside it.  Returns (the RS41 C=2 entry, launches)."""
     import torch
+    from radiosonde_auto_rx_tpu_torch import kernels
     from radiosonde_auto_rx_tpu_torch.demod.fsk import _consts
     from radiosonde_auto_rx_tpu_torch.ops import fsk_sf
-    g = torch.Generator(device=dev).manual_seed(seed)
-    xw = torch.randn(c, 2, cfg.nmem, generator=g, device=dev)
-    sf = torch.rand(c, cfg.ndft, generator=g, device=dev)
-    k = _consts(cfg, dev)
-    args = (xw, sf, k.wc, k.ws, k.starts, k.weights, k.decay)
-    got = fsk_sf.freq_est_sf(*args)
-    want = fsk_sf.freq_est_sf_ref(*args)
+    cases = []
+    for seed, (name, c) in enumerate(K1_SHAPES):
+        cfg = cfg_of(name)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        xw = torch.randn(c, 2, cfg.nmem, generator=g, device=dev)
+        sf = torch.rand(c, cfg.ndft, generator=g, device=dev)
+        k = _consts(cfg, dev)
+        cases.append((name, cfg, c, (xw, sf, k.wc, k.ws, k.starts,
+                                     k.weights, k.decay)))
+    kernels.reset_launches()
+    outs = [fsk_sf.freq_est_sf(*args) for *_, args in cases]
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    rel = err / float(want.abs().max())
-    ms = _time_ms(lambda: fsk_sf.freq_est_sf(*args))
-    call = _time_ms(lambda: fsk_sf.freq_est_sf(*args), ahead=False)
-    plain = _time_ms(lambda: fsk_sf.freq_est_sf_ref(*args))
-    nf, nd = len(k.starts), cfg.ndft
-    # per hop the windowed ndft-point DFT as an FFT (window, FFT), per
-    # bin |X| and the weighted hop sum; the EMA
-    flops = c * nf * (fft_flops(nd) + 2.0 * nd + 5.0 * nd) + 2.0 * c * nd
-    nbytes = 4.0 * (c * 2 * cfg.nmem + 2 * c * nd + 2 * nd * nd + 2 * nf)
-    b_ms, b_by = bound(flops, nbytes)
-    ok = bool(torch.isfinite(got).all()) and rel <= K1_TOL
-    print(f"K1 freq_est_sf {name} C={c} nmem={cfg.nmem} ndft={cfg.ndft} "
-          f"hops={cfg.numffts}: max_abs_err={err:.3e} rel={rel:.3e} "
-          f"(tol {K1_TOL}) kernel {ms:.4f} ms ({call:.4f} a call at the "
-          f"host's pace), twin {plain:.4f} ms, bound {b_ms:.5f} ms "
-          f"({b_by})")
-    if not ok:
-        raise AssertionError(f"K1 {name}: disagrees with its twin")
-    return dict(max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    launches = dict(kernels.launches)
+    print(f"phase 2 K1 path (ops.fsk_sf.freq_est_sf at {len(cases)} "
+          f"shapes): launches {launches}")
+    if launches["freq_est_sf"] != len(cases):
+        raise AssertionError("freq_est_sf did not launch its kernel once a "
+                             "call")
+    entry, worst, shapes = None, 0.0, []
+    for (name, cfg, c, args), got in zip(cases, outs):
+        want = fsk_sf.freq_est_sf_ref(*args)
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        worst = max(worst, err)
+        ms = _time_ms(lambda: fsk_sf.freq_est_sf(*args))
+        call = _time_ms(lambda: fsk_sf.freq_est_sf(*args), ahead=False)
+        plain = _time_ms(lambda: fsk_sf.freq_est_sf_ref(*args))
+        nf, nd = cfg.numffts, cfg.ndft
+        # per hop the windowed ndft-point DFT as an FFT (window, FFT), per
+        # bin |X| and the weighted hop sum; the EMA
+        flops = c * nf * (fft_flops(nd) + 2.0 * nd + 5.0 * nd) + 2.0 * c * nd
+        # read once: the window planes, the EMA carry, the window (ndft
+        # floats: all of wc/ws that the function needs), the hop starts and
+        # weights; written once: the new carry
+        nbytes = 4.0 * (c * 2 * cfg.nmem + 2 * c * nd + nd + 2 * nf)
+        b_ms, b_by = bound(flops, nbytes)
+        print(f"K1 freq_est_sf {name} C={c} nmem={cfg.nmem} ndft={nd} "
+              f"hops={nf}: max_abs_err={err:.3e} rel={rel:.3e} "
+              f"(tol {K1_TOL}) kernel {ms:.4f} ms ({call:.4f} a call at the "
+              f"host's pace), twin {plain:.4f} ms, bound {b_ms:.7f} ms "
+              f"({b_by})")
+        if not bool(torch.isfinite(got).all()) or rel > K1_TOL:
+            raise AssertionError(f"K1 {name} C={c}: disagrees with its twin")
+        times = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=None)
+        shapes.append(dict(chain=name, channels=c, **times))
+        entry = entry or times
+    return dict(entry, max_abs_err=worst, shapes=shapes), \
+        launches["freq_est_sf"]
 
 
 def cfg_of(name: str):
@@ -529,42 +559,6 @@ def check_scan(dev, name, cfg, c, seed=0):
     return dict(max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain,
                 plain_call_ms=plain_call, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, us_per_block=per_block)
-
-
-def k1_phase(dev):
-    """K1's own path: ``fsk_demod_block`` (the per-window demod: torch
-    ops around K1's entry ``freq_est_sf``) on one window of the main
-    path's K1 shapes, RS41 with 2 channels and DFM with 1 (counters zeroed
-    just before, read just after), each held against the same block with
-    K1's twin.  Returns K1's launches."""
-    import torch
-    from radiosonde_auto_rx_tpu_torch import kernels
-    from radiosonde_auto_rx_tpu_torch.demod import fsk
-    from radiosonde_auto_rx_tpu_torch.ops.fsk_sf import freq_est_sf_ref
-    cases = []
-    for seed, (name, c) in enumerate((("RS41", 2), ("DFM", 1))):
-        cfg = cfg_of(name)
-        x = torch.from_numpy(fsk_signal(cfg, c, cfg.nmem, seed)).to(dev)
-        cases.append((name, cfg, x, fsk.fsk_init_state(cfg, c, dev)))
-    kernels.reset_launches()
-    outs = [fsk.fsk_demod_block(cfg, x, st)[0] for _, cfg, x, st in cases]
-    torch.cuda.synchronize()
-    launches = dict(kernels.launches)
-    for (name, cfg, x, st), got in zip(cases, outs):
-        want = fsk.fsk_demod_block(cfg, x, st, spectral=freq_est_sf_ref)[0]
-        if not (torch.equal(got["bits"], want["bits"]) and
-                torch.equal(got["f_est"], want["f_est"]) and
-                float((got["soft"] - want["soft"]).abs().max()) <=
-                SCAN_TOL * float(want["soft"].abs().max())):
-            raise AssertionError(f"K1 path {name}: the block with K1 "
-                                 f"disagrees with the block with its twin")
-    print(f"phase 2 K1 path (fsk_demod_block on one RS41 C=2 and one DFM "
-          f"C=1 window): launches {launches}; bits and f_est equal to the "
-          f"block with K1's twin, soft within {SCAN_TOL} of peak")
-    if launches["freq_est_sf"] != len(cases):
-        raise AssertionError("fsk_demod_block did not launch K1 once a "
-                             "window")
-    return launches["freq_est_sf"]
 
 
 def check_path_launches(launches, demod_calls: int, path: str):
@@ -859,32 +853,11 @@ def same_tasks(a, b) -> bool:
 
 # ---------------------------------------------------------------------- #
 
-def profile_only(card: str) -> int:
-    """``--profile-only``: the phase 6 profile alone, on whichever package
-    ``radiosonde_auto_rx_tpu_torch`` resolves to from this script's
-    directory (a copy of this script beside an older tree profiles that
-    tree): a manual-task station, four 1 s blocks to warm it, then
-    ``profile_steady`` over the next four."""
-    from radiosonde_auto_rx_tpu_torch import kernels
-    import torch
-    kernels.library()
-    blocks = split_blocks(synth_stream(N_CHAN, FS_WIDE, SECONDS), FS_WIDE, 1)
-    st = make_station(torch.device("cuda", 0), N_CHAN, FS_WIDE)
-    for blk in blocks:
-        st.process_captures([blk])
-    prof = profile_steady(st, blocks)
-    print(f"card: {card}")
-    print(json.dumps({"profile": prof, "launches": dict(kernels.launches)}))
-    return 0
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if sys.argv[1:] == ["--profile-only"]:
-        return profile_only(card_line())
     from radiosonde_auto_rx_tpu_torch import kernels
     dev = torch.device("cuda", 0)
     if torch.get_float32_matmul_precision() != "highest" or \
@@ -904,16 +877,7 @@ def main() -> int:
         print(kernels.build_log["ptxas"].strip())
 
     # 2. kernels against their twins at the main path's shapes
-    # K1 alone (the scan's spectral stage as its own launch): first the
-    # shapes the main path gives the stage (the two RS41s in one call,
-    # the DFM alone), then wider batches and other chains; then K1's own
-    # path, the per-window demod
-    k1 = check_k1(dev, "RS41", cfg_of("RS41"), 2)
-    for seed, (name, c) in enumerate((("DFM", 1), ("RS41", 16), ("DFM", 16),
-                                      ("MTS01", 4), ("M20", 4)), 1):
-        k1["max_abs_err"] = max(k1["max_abs_err"], check_k1(
-            dev, name, cfg_of(name), c, seed)["max_abs_err"])
-    k1_launches = k1_phase(dev)
+    k1, k1_launches = k1_phase(dev)
     scan, shapes = None, []
     for seed, (name, c) in enumerate(SCAN_SHAPES):
         res = check_scan(dev, name, cfg_of(name), c, seed)
@@ -1050,7 +1014,8 @@ def main() -> int:
              k3_launches)):
         entries.append(dict(name=name, route="cuda", source=src,
                             replaces=rep, launches=n, **res))
-    entries[1]["path"] = "demod.fsk.fsk_demod_block"
+    entries[1]["path"] = "ops.fsk_sf.freq_est_sf"
+    entries[1]["station_launches"] = d_launches["freq_est_sf"]
     entries[3]["path"] = "ops.fft.fft"
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))

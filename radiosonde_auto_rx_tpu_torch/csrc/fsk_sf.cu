@@ -20,7 +20,9 @@
 //
 // The window is read from wc's DC column (wc[n, ndft/2] = win[n] cos 0, the
 // twin's own float32 values): the wrapper passes the twin's [ndft, ndft]
-// operands, and ws carries nothing the FFT needs.
+// operands, and ws carries nothing the FFT needs.  The wrapper refuses a
+// wc/ws pair that is not that window's DFT (ops/fsk_sf.py::is_dft_pair),
+// since the kernel would compute another function than the twin.
 #include "fsk_block.cuh"
 
 namespace {

@@ -14,6 +14,8 @@ launch (``csrc/fsk_block.cuh``: one FFT per hop, the hops summed in order
 in shared memory).  There is no path from a CUDA tensor to the twin.
 """
 
+import math
+import weakref
 from functools import lru_cache
 
 import torch
@@ -46,6 +48,40 @@ def _tables(starts: tuple, weights: tuple, device: torch.device):
 
 
 KERNEL_NDFT = (64, 128, 256, 512)    # the FFT sizes the kernels take
+DFT_TOL = 1e-6      # wc/ws against the DFT of wc's DC column, of its peak
+
+# (id(wc), id(ws)) -> (weak references, tensor versions) of the operand
+# pairs found to be a windowed DFT: each pair is checked once, not per call
+_dft_checked = {}
+
+
+def is_dft_pair(wc, ws) -> bool:
+    """Whether wc/ws are the fftshifted windowed-DFT operands that
+    ``demod.fsk._dft_mats`` builds, wc[n, k] = win[n] cos(2 pi n (k - N/2)
+    / N) and ws the same with sin, for the window ``win`` = wc's DC column
+    wc[:, N/2], to DFT_TOL of the window's peak.  That is the only function
+    the kernel computes: it reads the window and does an FFT."""
+    n = wc.shape[0]
+    win = wc[:, n // 2].double().cpu()
+    idx = torch.arange(n, dtype=torch.float64)
+    ang = 2 * math.pi * torch.outer(idx, idx - n // 2) / n
+    tol = DFT_TOL * float(win.abs().max())
+    return all(float((m.double().cpu() - win[:, None] * f(ang)).abs().max())
+               <= tol for m, f in ((wc, torch.cos), (ws, torch.sin)))
+
+
+def _dft_pair_ok(wc, ws) -> bool:
+    """``is_dft_pair``, cached per operand pair while neither is written."""
+    key, ver = (id(wc), id(ws)), (wc._version, ws._version)
+    hit = _dft_checked.get(key)
+    if hit and hit[0]() is wc and hit[1]() is ws and hit[2] == ver:
+        return True
+    if not is_dft_pair(wc, ws):
+        return False
+    if len(_dft_checked) >= 64:
+        _dft_checked.clear()
+    _dft_checked[key] = (weakref.ref(wc), weakref.ref(ws), ver)
+    return True
 
 
 def _launch(xw, sf, wc, ws, starts, weights, decay):
@@ -63,6 +99,10 @@ def _launch(xw, sf, wc, ws, starts, weights, decay):
     if ndft not in KERNEL_NDFT:
         raise ValueError(f"freq_est_sf kernel: ndft={ndft} not in "
                          f"{KERNEL_NDFT}")
+    if not _dft_pair_ok(wc, ws):
+        raise ValueError("freq_est_sf kernel: wc/ws must be the fftshifted "
+                         "windowed DFT of wc's DC column (demod.fsk."
+                         "_dft_mats), the only function the kernel computes")
     starts = tuple(int(s) for s in starts)
     weights = tuple(float(w) for w in weights)
     nf = len(starts)
@@ -90,10 +130,14 @@ def freq_est_sf(xw, sf, wc, ws, starts, weights, decay):
 
     xw: [C, 2, nmem] float32 window planes; sf: [C, ndft] EMA carry;
     wc/ws: [ndft, ndft] windowed-DFT operands (fftshifted columns, from
-    ``demod.fsk._dft_mats``; the kernel, an FFT, reads the Hann window
-    from wc's DC column, wc[:, ndft/2]); starts: hop offsets into the
-    window; weights/decay: closed-form per-hop EMA coefficients.
-    Returns sf_new [C, ndft]."""
+    ``demod.fsk._dft_mats``); starts: hop offsets into the window;
+    weights/decay: closed-form per-hop EMA coefficients.
+    Returns sf_new [C, ndft].
+
+    The twin takes any wc/ws.  The kernel, an FFT, reads only the window
+    in wc's DC column, wc[:, ndft/2], so on a CUDA tensor wc/ws must be
+    that window's DFT operands (``is_dft_pair``, checked once per pair);
+    any other pair raises."""
     if xw.device.type == "cpu":
         return freq_est_sf_ref(xw, sf, wc, ws, starts, weights, decay)
     if xw.device.type != "cuda":

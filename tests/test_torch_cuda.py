@@ -257,6 +257,13 @@ def test_kernels_refuse_bad_input(dev):
         fsk_sf.freq_est_sf(xw[:, :, ::2], torch.zeros(2, cfg.ndft,
                                                       device=dev),
                            k.wc, k.ws, k.starts, k.weights, k.decay)
+    # operands the kernel does not compute with (it reads only wc's DC
+    # column as the window): refused, no launch
+    before = kernels.launches["freq_est_sf"]
+    with pytest.raises(ValueError):
+        fsk_sf.freq_est_sf(xw, torch.zeros(2, cfg.ndft, device=dev), k.wc,
+                           -k.ws, k.starts, k.weights, k.decay)
+    assert kernels.launches["freq_est_sf"] == before
 
 
 def test_station_cuda_equals_cpu(dev):

@@ -12,6 +12,8 @@ float32 on both sides, with the contraction order of XLA's and
 PyTorch's matmuls differing.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -68,6 +70,36 @@ def test_k1_twin_matches_einsum_path(kw):
                                    torch.from_numpy(sf))
     _rel_close(sf_p, sf_r, 1e-5)
     np.testing.assert_array_equal(f_p.numpy(), np.asarray(f_r))
+
+
+def _dft_pair(n, win):
+    """wc/ws as ``demod.fsk._dft_mats`` builds them, for any window."""
+    ang = 2 * np.pi * np.outer(np.arange(n), np.arange(n) - n // 2) / n
+    return (torch.from_numpy((win[:, None] * np.cos(ang)).astype(np.float32)),
+            torch.from_numpy((win[:, None] * np.sin(ang)).astype(np.float32)))
+
+
+@pytest.mark.parametrize("ndft", fsk_sf.KERNEL_NDFT)
+def test_k1_kernel_takes_only_the_dft_pair(ndft):
+    """The kernel reads the window from wc's DC column and does an FFT, so
+    its wrapper takes wc/ws only where they are that window's DFT: the
+    demod's own pair, or another window's; not a changed, swapped or
+    transposed one."""
+    wc, ws = (torch.from_numpy(m) for m in port_fsk._dft_mats(
+        SimpleNamespace(ndft=ndft)))
+    assert fsk_sf.is_dft_pair(wc, ws)
+    win = np.random.default_rng(ndft).uniform(0.2, 1.0, ndft)
+    assert fsk_sf.is_dft_pair(*_dft_pair(ndft, win))
+    bumped = ws.clone()
+    bumped[3, 5] += 1e-4
+    for bad in ((wc, -ws), (ws, wc), (wc.T.contiguous(), ws), (wc, bumped),
+                (wc, torch.full_like(ws, float("nan")))):
+        assert not fsk_sf.is_dft_pair(*bad)
+    # the check is cached per pair, and taken again once either is written
+    wc, ws = wc.clone(), ws.clone()
+    assert fsk_sf._dft_pair_ok(wc, ws) and fsk_sf._dft_pair_ok(wc, ws)
+    ws[3, 5] += 1e-4
+    assert not fsk_sf._dft_pair_ok(wc, ws)
 
 
 @pytest.mark.parametrize("n", [64, 256, 1024])
