@@ -13,7 +13,10 @@ Phases, in order; any failure raises (non-zero exit, traceback):
    one launch a call, K1 as its spectral stage) against ``fsk_scan_ref``
    on 1 s of modulated signal with noise at the main path's shapes (RS41
    with 2 channels, DFM at 50 kHz with 1), then RS41 with 16, M20 and
-   MTS01 with 4, M10 (odd n) and an FSK4 config with 2, once from the
+   MTS01 with 4, M10 (odd n) and an FSK4 config with 2, and the geometries
+   of phase 8's chains: the iMet AFSK audio (P = 8, ndft 512, a real
+   input) with 1 and 4, WXR301 (96 kHz, ndft 256, the mask comb over the
+   whole spectrum) and WXRPN9 (100 kHz) with 1, once from the
    initial state with probe outputs and once from a carried state; K1
    alone through its entry point ``ops.fsk_sf.freq_est_sf`` (a thin
    kernel around the same stage; counters zeroed just before, read just
@@ -72,6 +75,23 @@ Phases, in order; any failure raises (non-zero exit, traceback):
    same telemetry, with the launches checked as in phase 5.  Print the
    ``detections`` stat, the launches and the wall time of the block that
    runs ``confirm``.
+8. The narrow station's remaining paths: 4 s of a second capture (same
+   geometry, noise and wire format; ``wideband_sondes`` on) carrying an
+   iMet-4 on a channel center (Bell-202 AFSK on FM), a WXR301 10 kHz off
+   grid (50 kHz shift) and two RS41s 12 kHz either side of one channel
+   center, on channels clear of phase 3's, driven as 1 s and then 2 s
+   blocks twice (counters zeroed just before each drive, read just
+   after): (a) all four as manual tasks (the iMet in the fused step, the
+   WXR301 extracted at 96 kHz per task, the second RS41 through the
+   forced collision path), (b) with no task (the iMet detected and
+   decoded as AFSK, the WXR301 through the PSD width gate and the 96 kHz
+   wide scan, the second RS41 through collision + detection).  Check the
+   types, serials and positions of all four from the 2 s blocks, one
+   scan launch per demod call (the AFSK group and every wide and
+   collision decode included), K1 never alone, and the same telemetry
+   and tasks block by block from a CPU ``Station``.  Print the wall time
+   of a steady 1 s block with the four sondes active, of the detection
+   block, and the launches.
 
 The second-to-last line is a JSON object of per-kernel results (times
 at the main path's shapes, bound, library-call time, the largest error
@@ -84,6 +104,7 @@ result.
 
 import datetime
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -113,7 +134,8 @@ K1_SHAPES = (("RS41", 2), ("DFM", 1), ("RS41", 16), ("DFM", 16),
 # the DFM alone), then wider batches and the other geometries (M10's odd
 # n = 745, MTS01's ndft 512, an FSK4 config)
 SCAN_SHAPES = (("RS41", 2), ("DFM", 1), ("RS41", 16), ("M20", 4),
-               ("MTS01", 4), ("M10", 2), ("FSK4", 2))
+               ("MTS01", 4), ("M10", 2), ("FSK4", 2), ("AFSK", 1),
+               ("AFSK", 4), ("WXR301", 1), ("WXRPN9", 1))
 FSK4_CFG = dict(fs=48000, rs=2400, m=4, p=5, nsym=100, est_min=-10000,
                 est_max=10000)
 # K3's phase: (N, rows, method, kernel launches expected): one launch up
@@ -160,6 +182,44 @@ def sondes_for(n_chan: int, fs_wide: int):
             ("DFM", "21054321", float(f[4 * n_chan // 5]), 47.9, 16.8)]
 
 
+def path_sondes_for(n_chan: int, fs_wide: int):
+    """Phase 8's sondes, as ``sondes_for``, on channels clear of phase 3's:
+    an iMet-4 on a channel center, a WXR301 10 kHz off grid, and two
+    RS41s 12 kHz either side of one channel center (24 kHz apart, beyond
+    ``decoder_spacing_limit``; the second at half the amplitude, see
+    ``LEVEL``)."""
+    from radiosonde_auto_rx_tpu_torch.ops.channelizer import channel_freqs
+    f = channel_freqs(n_chan, fs_wide)
+    pair = float(f[9 * n_chan // 10])
+    return [("IMET4", None, float(f[3 * n_chan // 10]), 45.46, 9.19),
+            ("WXR301", "30112233", float(f[7 * n_chan // 10]) + 10e3, 34.7,
+             135.5),
+            ("RS41", "R3141592", pair - 12e3, 59.33, 18.07),
+            ("RS41", "S2718281", pair + 12e3, 52.52, 13.41)]
+
+
+# Amplitude of a sonde by serial (else 0.2).  Two equal RS41s 24 kHz
+# apart read as one signal wider (RMS) than the PSD width gate's 12 kHz
+# limit: with ``wideband_sondes`` on, the station sends their centroid to
+# the 96 kHz wide scan and then to the collision path there, where
+# neither is found (so does the reference).  With the second 6 dB down
+# the pair reads narrower and the scan nominates both
+# (tests/test_torch_station_paths.py::test_width_gate_on_an_rs41_pair).
+LEVEL = {"S2718281": 0.1}
+# How far a task and its telemetry may sit from the sonde's frequency
+# (else 2 kHz): a Weathex task starts at the wide scan's PSD centroid of
+# its two tones 50 kHz apart, which an imbalance of tone power in a block
+# moves by kHz (the demod's mask estimator searches +-55 kHz)
+NEAR_HZ = {"WXR301": 5e3}
+
+
+def want_id(typ: str, serial):
+    """The telemetry id a sonde's serial gives (None: an iMet's id is
+    synthesized from its power-on time, its frequency and the date)."""
+    return {"RS41": serial, "DFM": f"DFM-{serial}",
+            "WXR301": f"WXR-{serial}"}.get(typ)
+
+
 def _rs41_bits(serial, lat, lon, n_frames, rng):
     from radiosonde_auto_rx_tpu_torch.models.rs41 import (
         encode_frame, frame_to_bits, make_calibytes)
@@ -187,25 +247,63 @@ def _dfm_bits(serial, lat, lon, n_cycles, rng):
         .astype(np.uint8)])
 
 
-def synth_stream(n_chan: int, fs_wide: int, seconds: int, seed: int = 21):
-    """``seconds`` of one continuous capture with the three sondes keyed
-    up, as cs16 ``[2, seconds*fs_wide]`` int16 planes."""
+def _imet_signal(lat, lon, secs, fs_wide, f_off, rng):
+    """An iMet-4: Bell-202 AFSK frames (GPS + ePTU packets) FM-modulated
+    onto the carrier at 3 kHz deviation."""
+    from radiosonde_auto_rx_tpu_torch.models.imet4 import (
+        afsk_modulate, encode_eptu_packet, encode_frame_bits,
+        encode_gps_packet)
+    frame = encode_frame_bits([encode_gps_packet(lat=lat, lon=lon, alt=2500),
+                               encode_eptu_packet()], sync_bits=160)
+    n = -(-secs * 1200 // len(frame))
+    bits = np.concatenate([rng.integers(0, 2, 150)] + [frame] * n)
+    audio = afsk_modulate(bits.astype(np.uint8), fs=fs_wide)
+    ph = 2 * np.pi * np.cumsum(3000.0 * audio.astype(np.float64) + f_off) \
+        / fs_wide
+    return np.exp(1j * ph)
+
+
+def _wxr_bits(serial, lat, lon, secs):
+    """WXR301 frames (ids 0, 1, 2 in turn: id 2 carries the position)
+    with short 1010 gaps after a 1010 preamble."""
+    from radiosonde_auto_rx_tpu_torch.models.weathex import (
+        encode_frame, frame_to_bits)
+    gap = np.tile(np.array([1, 0], np.uint8), 30)
+    out = [np.tile(np.array([1, 0], np.uint8), 200)]
+    while sum(map(len, out)) < secs * 4800:
+        k = len(out) // 2
+        out += [frame_to_bits(encode_frame(
+            frid=k % 3, sn=int(serial), cnt=700 + k // 3, lat=lat, lon=lon,
+            alt=6000.0)), gap]
+    return np.concatenate(out)
+
+
+def synth_stream(n_chan: int, fs_wide: int, seconds: int, seed: int = 21,
+                 sondes=sondes_for):
+    """``seconds`` of one continuous capture with the sondes of
+    ``sondes(n_chan, fs_wide)`` keyed up (RS41, DFM, IMET4, WXR301), as
+    cs16 ``[2, seconds*fs_wide]`` int16 planes."""
     from radiosonde_auto_rx_tpu_torch.demod.modulate import gfsk_mod
     rng = np.random.default_rng(seed)
     t = seconds * fs_wide
     x = (rng.standard_normal(t) + 1j * rng.standard_normal(t)) * 0.002
     secs = seconds + 1
-    for typ, serial, f_off, lat, lon in sondes_for(n_chan, fs_wide):
+    for typ, serial, f_off, lat, lon in sondes(n_chan, fs_wide):
         if typ == "RS41":
             bits = _rs41_bits(serial, lat, lon, int(secs * 4800 / 2560) + 1,
                               rng)
             sig = gfsk_mod(bits, fs_wide, 4800, 2, f_off, 4800, bt=0.5)
-        else:
+        elif typ == "DFM":
             bits = _dfm_bits(serial, lat, lon, secs, rng)
             sig = gfsk_mod(bits, fs_wide, 2500, 2, f_off, 5000, bt=0.5)
+        elif typ == "IMET4":
+            sig = _imet_signal(lat, lon, secs, fs_wide, f_off, rng)
+        else:
+            sig = gfsk_mod(_wxr_bits(serial, lat, lon, secs), fs_wide, 4800,
+                           2, f_off, 50000, bt=1.0)
         if len(sig) < t:
             raise RuntimeError(f"{typ} burst shorter than the capture")
-        x += 0.2 * sig[:t]
+        x += LEVEL.get(serial, 0.2) * sig[:t]
     planes = np.stack([x.real, x.imag]) * 32768.0
     return np.clip(np.round(planes), -32768, 32767).astype(np.int16)
 
@@ -218,15 +316,17 @@ def split_blocks(stream, fs_wide: int, block_s: int):
 # ---------------------------------------------------------------------- #
 # the station
 
-def make_station(device, n_chan: int, fs_wide: int, manual: bool = True):
-    """A port ``Station`` at this geometry; ``manual``: the three sondes
-    start as manual tasks, else the station has to find them."""
+def make_station(device, n_chan: int, fs_wide: int, manual: bool = True,
+                 sondes=sondes_for, **config):
+    """A port ``Station`` at this geometry (``config`` over STATION_CFG);
+    ``manual``: the sondes start as manual tasks, else the station has to
+    find them."""
     from radiosonde_auto_rx_tpu_torch.station.station import Station
     st = Station({**STATION_CFG, "capture_rate": fs_wide,
-                  "num_channels": n_chan}, center_freq_hz=CENTER,
+                  "num_channels": n_chan, **config}, center_freq_hz=CENTER,
                  device=device)
     if manual:
-        for typ, serial, f_off, _, _ in sondes_for(n_chan, fs_wide):
+        for typ, serial, f_off, _, _ in sondes(n_chan, fs_wide):
             st.start_manual_decoder(CENTER + f_off, typ)
     return st
 
@@ -241,19 +341,29 @@ def _key(t):
             round(t["lat"], 4), round(t["lon"], 4), round(t["alt"], 1))
 
 
-def check_telemetry(telems, n_chan: int, fs_wide: int, types):
+def check_telemetry(telems, n_chan: int, fs_wide: int, types,
+                    sondes=sondes_for):
     """Every sonde of ``types`` decoded with its serial and a position
     within 1e-4 degree, and nothing else decoded wrong; returns
-    {serial: frames decoded}."""
+    {serial: frames decoded}.  An iMet's synthesized id must have its
+    form and be one for all its frames."""
+    from radiosonde_auto_rx_tpu_torch.station.chains import MODEL_NAME
     seen = {}
-    for typ, serial, f_off, lat, lon in sondes_for(n_chan, fs_wide):
-        want_id = serial if typ == "RS41" else f"DFM-{serial}"
+    for typ, serial, f_off, lat, lon in sondes(n_chan, fs_wide):
+        want = want_id(typ, serial)
         mine = [t for t in telems
-                if abs(t["freq_float"] * 1e6 - (CENTER + f_off)) < 2e3]
+                if abs(t["freq_float"] * 1e6 - (CENTER + f_off)) <
+                NEAR_HZ.get(typ, 2e3)]
         if not mine and typ in types:
             raise AssertionError(f"{typ} {serial}: no telemetry")
+        if want is None:
+            ids = {t["id"] for t in mine}
+            if len(ids) > 1 or not all(
+                    re.fullmatch(r"IMET-[0-9A-F]{8}", i) for i in ids):
+                raise AssertionError(f"{typ}: ids {ids}")
+            serial = want = ids.pop() if ids else typ
         for t in mine:
-            if t["type"] != typ or t["id"] != want_id:
+            if t["type"] != MODEL_NAME.get(typ, typ) or t["id"] != want:
                 raise AssertionError(f"{typ} {serial}: got {t['type']} "
                                      f"{t['id']}")
             if abs(t["lat"] - lat) > 1e-4 or abs(t["lon"] - lon) > 1e-4:
@@ -266,7 +376,7 @@ def check_telemetry(telems, n_chan: int, fs_wide: int, types):
 
 
 def drive_station(device, runs, n_chan: int, fs_wide: int,
-                  manual: bool = True):
+                  manual: bool = True, sondes=sondes_for, **config):
     """A station path: for each run (a list of blocks), a new station
     (``make_station``), then ``process_captures`` per block.  The launch
     counters are zeroed just before and read just after.  Returns
@@ -278,7 +388,7 @@ def drive_station(device, runs, n_chan: int, fs_wide: int,
     kernels.reset_launches()
     out = []
     for blocks in runs:
-        st = make_station(device, n_chan, fs_wide, manual)
+        st = make_station(device, n_chan, fs_wide, manual, sondes, **config)
         telems, per_block = [], []
         for blk in blocks:
             t0 = time.perf_counter()
@@ -429,16 +539,18 @@ def k1_phase(dev):
 
 
 def cfg_of(name: str):
-    """The demod configuration of a chain of the station's table (or of
-    the FSK4 test configuration)."""
+    """The demod configuration of a chain of the station's table at the
+    rate the station demodulates it (a wideband chain at its own rate;
+    "AFSK": the iMet chains' audio demod), or of the FSK4 test
+    configuration."""
     from radiosonde_auto_rx_tpu_torch.demod.fsk import FSKConfig
     from radiosonde_auto_rx_tpu_torch.station.chains import CHAIN_TABLE, \
-        _demod_cfg
+        demod_chain
     if name == "FSK4":
         return FSKConfig(**FSK4_CFG)
-    ch = CHAIN_TABLE[name]
-    return _demod_cfg(ch.get("resample_to", 48000), ch["rs"],
-                      ch.get("est", 10000), ch.get("mask", 0))
+    if name == "AFSK":
+        name = "IMET4"
+    return demod_chain(name, CHAIN_TABLE[name].get("wide_fs", 48000))[0]
 
 
 def fsk_signal(cfg, channels: int, t_samples: int, seed: int = 0,
@@ -446,9 +558,14 @@ def fsk_signal(cfg, channels: int, t_samples: int, seed: int = 0,
     """[C, 2, T] float32 planes of random bits at ``cfg``'s rate: GFSK
     (M = 2) or FSK (M = 4) at the mask's tone spacing (else at the lesser
     of 2 Rs and the search half-width), each channel 300 Hz further off,
-    with AWGN at ``ebno_db`` (the port's copy of ``demod/modulate.py``)."""
+    with AWGN at ``ebno_db`` (the port's copy of ``demod/modulate.py``).
+    The AFSK configuration gets Bell-202 audio as the station hands it to
+    the demod: a real signal (the Q plane zero) with real noise."""
     from radiosonde_auto_rx_tpu_torch.demod.modulate import (
         add_awgn, fsk_mod, gfsk_mod)
+    from radiosonde_auto_rx_tpu_torch.models.imet4 import (
+        BAUD, afsk_demod_config, afsk_modulate)
+    afsk = cfg.fs % BAUD == 0 and cfg == afsk_demod_config(cfg.fs)
     rng = np.random.default_rng(seed)
     spacing = cfg.tone_spacing or min(2 * cfg.rs, cfg.est_max)
     bps = cfg.bits_per_symbol
@@ -456,6 +573,12 @@ def fsk_signal(cfg, channels: int, t_samples: int, seed: int = 0,
     for i in range(channels):
         bits = rng.integers(0, 2, (t_samples // cfg.ts + 1) * bps)
         f0 = 300.0 * (i % 8) - 1000.0
+        if afsk:
+            audio = afsk_modulate(bits.astype(np.uint8), cfg.fs)
+            iq = add_awgn(audio[:t_samples].astype(np.complex64), ebno_db,
+                          cfg.fs, cfg.rs, bps, rng=rng)
+            rows.append(iq.real + 0j)
+            continue
         if cfg.m == 4:
             iq = fsk_mod(bits, cfg.fs, cfg.rs, 4, f0 - 1.5 * spacing, spacing)
         else:
@@ -584,11 +707,15 @@ class DemodCalls:
         from radiosonde_auto_rx_tpu_torch.parallel import station_step
         from radiosonde_auto_rx_tpu_torch.station import station
         self.calls, self.host_s = 0, 0.0
+        self.by_cfg = {}             # "fs/rs" -> calls
         self._mods = (station_step, station)
         self._orig = station_step.fsk_demod_stream
 
         def counted(cfg, x, *args, **kw):
-            self.calls += fsk.fsk_num_blocks_buffered(cfg, x.shape[-1]) > 0
+            if fsk.fsk_num_blocks_buffered(cfg, x.shape[-1]) > 0:
+                self.calls += 1
+                key = f"{cfg.fs}/{cfg.rs}"
+                self.by_cfg[key] = self.by_cfg.get(key, 0) + 1
             t0 = time.perf_counter()
             try:
                 return self._orig(cfg, x, *args, **kw)
@@ -834,12 +961,101 @@ def check_detector(dev, stream):
         raise AssertionError("the CUDA detector disagrees with its CPU path")
 
 
+def paths_phase(dev, card):
+    """Phase 8: the narrow station's remaining paths on
+    ``path_sondes_for``'s capture, by manual tasks and by detection.
+    Returns the scan's and K2's launches by drive."""
+    import torch
+    from radiosonde_auto_rx_tpu_torch import kernels
+    sondes = path_sondes_for(N_CHAN, FS_WIDE)
+    stream = synth_stream(N_CHAN, FS_WIDE, SECONDS, seed=23,
+                          sondes=path_sondes_for)
+    runs = [split_blocks(stream, FS_WIDE, 1), split_blocks(stream, FS_WIDE, 2)]
+    types = [typ for typ, *_ in sondes]
+    want = [(typ, CENTER + f) for typ, _, f, _, _ in sondes]
+    # the demod rates of the AFSK audio and of the wide extraction
+    afsk, wxr = (f"{c.fs}/{c.rs}" for c in map(cfg_of, ("AFSK", "WXR301")))
+    print(f"phase 8 synth: {SECONDS} s of {FS_WIDE} Hz cs16 with "
+          f"{[(t, round(f / 1e3, 1)) for t, _, f, _, _ in sondes]} (type, "
+          f"kHz from the center), cut into {[len(r) for r in runs]} blocks")
+    out = {}
+    for manual in (True, False):
+        tag = "manual tasks" if manual else "no task"
+        with DemodCalls() as calls:
+            res, launches = drive_station(dev, runs, N_CHAN, FS_WIDE, manual,
+                                          path_sondes_for,
+                                          wideband_sondes=True)
+        for (st, telems, per_block), need, blocks in zip(
+                res, ((), types), runs):
+            check_detections(per_block, want)
+            seen = check_telemetry(telems, N_CHAN, FS_WIDE, need,
+                                   path_sondes_for)
+            print(f"phase 8 station, {tag}, {len(blocks)} blocks of "
+                  f"{blocks[0].shape[1] // FS_WIDE} s: tasks "
+                  f"{per_block[-1][0]}, frames {seen}, stats {st.stats}; "
+                  f"block wall ms {[round(ms, 2) for _, ms in per_block]} "
+                  f"({card})")
+        print(f"phase 8 kernel launches, {tag}: {launches}; demod calls "
+              f"{calls.calls} by fs/rs {calls.by_cfg}")
+        check_path_launches(launches, calls.calls, f"phase 8 {tag}")
+        if not calls.by_cfg.get(afsk) or not calls.by_cfg.get(wxr):
+            raise AssertionError(f"phase 8 {tag}: no AFSK ({afsk}) or no "
+                                 f"wide ({wxr}) demod call")
+        cpu, _ = drive_station(torch.device("cpu"), runs, N_CHAN, FS_WIDE,
+                               manual, path_sondes_for, wideband_sondes=True)
+        for (_, telems, pb), (_, telems_cpu, pb_cpu) in zip(res, cpu):
+            if sorted(map(_key, telems)) != sorted(map(_key, telems_cpu)):
+                raise AssertionError(f"phase 8 {tag}: CUDA and CPU stations "
+                                     f"decoded different telemetry")
+            for (tasks, _), (tasks_cpu, _) in zip(pb, pb_cpu):
+                if not same_tasks(tasks, tasks_cpu):
+                    raise AssertionError(f"phase 8 {tag}: CUDA and CPU tasks "
+                                         f"differ: {tasks} vs {tasks_cpu}")
+        print(f"phase 8 reference, {tag}: CPU station had the same tasks "
+              f"block by block and decoded the same "
+              f"{[len(t) for _, t, _ in cpu]} frames")
+        out[tag] = dict(launches=launches, demod_calls=calls.calls)
+        if manual:
+            # steady 1 s blocks with the four sondes active
+            st = res[0][0]
+            walls = []
+            kernels.reset_launches()
+            with DemodCalls() as calls:
+                for i in range(8):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    st.process_captures([runs[0][i % len(runs[0])]])
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+            print(f"phase 8 steady 1 s block, four sondes active: median "
+                  f"{statistics.median(walls):.2f} ms over {len(walls)} "
+                  f"blocks ({card}); launches {dict(kernels.launches)}, "
+                  f"demod calls {calls.calls} by fs/rs {calls.by_cfg}")
+            check_path_launches(kernels.launches, calls.calls,
+                                "phase 8 steady")
+    # the detection block on a new station each time (the first 1 s
+    # block: scan, confirm, wide scan, collision, decode)
+    det_ms = []
+    for _ in range(3):
+        st = make_station(dev, N_CHAN, FS_WIDE, False, path_sondes_for,
+                          wideband_sondes=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st.process_captures([runs[0][0]])
+        torch.cuda.synchronize()
+        det_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"phase 8 detection block (1 s): {[round(v, 2) for v in det_ms]} "
+          f"ms, median {statistics.median(det_ms):.2f} ms ({card})")
+    return out
+
+
 def check_detections(per_block, types_freqs):
     """After the run, one task per sonde, with its type and within 2 kHz
-    of its frequency (its channel)."""
+    (``NEAR_HZ``) of its frequency."""
     tasks = per_block[-1][0]
     for typ, f in types_freqs:
-        if not any(t == typ and abs(fz - f) < 2e3 for t, fz in tasks):
+        if not any(t == typ and abs(fz - f) < NEAR_HZ.get(typ, 2e3)
+                   for t, fz in tasks):
             raise AssertionError(f"{typ} at {f / 1e6:.4f} MHz not "
                                  f"detected: tasks {tasks}")
     if len(tasks) != len(types_freqs):
@@ -998,6 +1214,9 @@ def main() -> int:
           f"{[round(v, 2) for v in conf_ms]} ms, median "
           f"{statistics.median(conf_ms):.2f} ms ({card})")
 
+    # 8. the narrow station's remaining paths
+    paths = paths_phase(dev, card)
+
     entries = []
     for name, src, rep, res, n in (
             ("fsk_scan", "radiosonde_auto_rx_tpu_torch/csrc/fsk_scan.cu",
@@ -1014,6 +1233,10 @@ def main() -> int:
              k3_launches)):
         entries.append(dict(name=name, route="cuda", source=src,
                             replaces=rep, launches=n, **res))
+    entries[0]["phase8_launches"] = {
+        tag: v["launches"]["fsk_scan"] for tag, v in paths.items()}
+    entries[2]["phase8_launches"] = {
+        tag: v["launches"]["fft_abs2"] for tag, v in paths.items()}
     entries[1]["path"] = "ops.fsk_sf.freq_est_sf"
     entries[1]["station_launches"] = d_launches["freq_est_sf"]
     entries[3]["path"] = "ops.fft.fft"

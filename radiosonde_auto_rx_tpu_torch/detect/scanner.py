@@ -35,14 +35,17 @@ class SondeDetector:
     """Detect sonde type(s) in IQ channels at rate ``fs`` on ``device``.
 
     Usage: ``SondeDetector(fs, device=dev).detect(iq)`` -> list of
-    Detection (per channel when input is batched)."""
+    Detection (per channel when input is batched).  ``bw_table``: the IF
+    lowpass bandwidth of each class (default ``LPIQ_BW``; the station's
+    96 kHz wide scan passes its own)."""
 
     def __init__(self, fs: int = 48000, specs=None, taps: int = 97,
-                 prescreen: bool = False, *, device):
+                 prescreen: bool = False, bw_table=None, *, device):
         if prescreen:
             raise NotImplementedError(TODO_PRESCREEN)
         self.fs = fs
         self.device = torch.device(device)
+        bw_table = LPIQ_BW if bw_table is None else bw_table
         specs = TEMPLATES if specs is None else specs
 
         def on(a):
@@ -54,7 +57,7 @@ class SondeDetector:
         # no filters
         self.classes = []
         for cls in sorted({s.lp_iq for s in specs}):
-            bw = LPIQ_BW[cls]
+            bw = bw_table[cls]
             cls_specs = [s for s in specs if s.lp_iq == cls]
             bank, lens, _ = build_template_bank(fs, cls_specs)
             lens = tuple(int(v) for v in lens)

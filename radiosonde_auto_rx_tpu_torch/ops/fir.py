@@ -1,11 +1,14 @@
 """FIR lowpass design and channel-batched filtering.
 
-Port of ``radiosonde_auto_rx_tpu/ops/fir.py``: ``design_lowpass`` (host
-NumPy, copied) and the 'same'-length, group-delay-aligned filters
-``fir_filter`` and ``fir_filter_block`` (the detector's conditioning and
-the iMet AFSK front end).
+Port of ``radiosonde_auto_rx_tpu/ops/fir.py``: ``design_lowpass`` and
+``design_lowpass_for_transition`` (host NumPy, copied), the
+'same'-length, group-delay-aligned filters ``fir_filter`` and
+``fir_filter_block`` (the detector's conditioning and the iMet AFSK
+front end), the causal ``fir_filter_streaming`` (a carried tail of
+K - 1 samples) and the filter + M:1 ``decimate``.  The last two take
+complex input too (two real planes).
 
-Both filters are ``torch.nn.functional.conv1d`` (a cross-correlation,
+Every filter is ``torch.nn.functional.conv1d`` (a cross-correlation,
 so the taps are reversed, as ``lax.conv_general_dilated`` is fed in the
 reference).  On a CUDA tensor conv1d goes through cuDNN, which computes
 float32 convolutions in TF32 (about three decimal digits) unless
@@ -52,6 +55,16 @@ def design_lowpass(cutoff_norm: float, taps: int) -> np.ndarray:
     return ws.astype(np.float32)
 
 
+def design_lowpass_for_transition(cutoff_norm: float,
+                                  transition_norm: float) -> np.ndarray:
+    """Lowpass with taps sized from the transition bandwidth (taps ~=
+    4/tbw), the reference's sizing rule (scan/dft_detect.c:1056-1060)."""
+    taps = int(4.0 / max(transition_norm, 1e-6))
+    if taps % 2 == 0:
+        taps += 1
+    return design_lowpass(cutoff_norm, taps)
+
+
 @contextmanager
 def _fp32_conv():
     """cuDNN convolutions in full float32 (no TF32) inside the block."""
@@ -85,3 +98,60 @@ def fir_filter(x, h):
     """Filter [C, T] (or [T]) by taps h [K], 'same' length, group-delay
     aligned."""
     return fir_filter_block(x, h)[..., 0, :]
+
+
+def _taps_on(h, x):
+    """Taps as a reversed conv1d weight [1, 1, K] on ``x``'s device."""
+    h = torch.as_tensor(h, dtype=torch.float32, device=x.device)
+    return h.flip(-1)[None, None, :]
+
+
+def _conv_valid(x, h):
+    """'valid' convolution of real [C, T] with taps [K] -> [C, T-K+1]:
+    y[t] = sum_k h[k] x[t + K-1 - k]."""
+    with _fp32_conv():
+        return F.conv1d(x.float()[:, None, :], _taps_on(h, x))[:, 0, :]
+
+
+def _complex_planes(fn, x):
+    """``fn`` on a real tensor, or on each plane of a complex one."""
+    if x.is_complex():
+        return torch.complex(fn(x.real), fn(x.imag))
+    return fn(x)
+
+
+def fir_filter_streaming(x_block, h, tail):
+    """Causal streaming FIR: returns (y_block, new_tail).
+
+    ``tail`` is the last K-1 input samples of the previous block
+    ([C, K-1]); the returned block is time-aligned with the input block
+    delayed by the filter group delay (K-1)/2 relative to a 'same'
+    filter."""
+    K = int(torch.as_tensor(h).shape[0])
+    xx = torch.cat([tail, x_block], dim=-1)              # [C, K-1+T]
+    y = _complex_planes(lambda v: _conv_valid(v, h), xx)
+    return y, xx[:, xx.shape[-1] - (K - 1):]
+
+
+def decimate(x, factor: int, h: np.ndarray | None = None):
+    """Lowpass + M:1 decimation of [C, T] (or [T]) -> [C, ceil(T/M)]:
+    a 'same'-aligned filter sampled every ``factor``-th output (one
+    strided conv1d).  Default taps: cutoff 0.45 of the output Nyquist,
+    transition 0.1 of the output rate."""
+    if factor == 1:
+        return x
+    if h is None:
+        h = design_lowpass_for_transition(0.45 / factor, 0.1 / factor)
+    K = len(h)
+    squeeze = x.dim() == 1
+    if squeeze:
+        x = x[None, :]
+
+    def strided(v):
+        d = (K - 1) // 2
+        vp = F.pad(v.float()[:, None, :], (d, K - 1 - d))
+        with _fp32_conv():
+            return F.conv1d(vp, _taps_on(h, v), stride=factor)[:, 0, :]
+
+    y = _complex_planes(strided, x)
+    return y[0] if squeeze else y

@@ -1,7 +1,9 @@
-"""FM quadrature discriminator on re/im planes.
+"""FM quadrature discriminator and IQ conditioning.
 
 Port of ``radiosonde_auto_rx_tpu/ops/fm.py`` (``FM_GAIN``,
-``fm_discriminate_planes``, ``fm_discriminate_planes_mixed``):
+``fm_discriminate`` on complex IQ, ``fm_discriminate_planes`` and
+``fm_discriminate_planes_mixed`` on re/im planes, ``iq_dc_removal``,
+``dc_offset``):
     s_fm[t] = gain * arg( z[t] * conj(z[t-1]) ) / pi,   gain = 0.8
 i.e. instantaneous frequency normalised to +/-1 at Nyquist, times 0.8.
 The port computes in float32 throughout, so the reference's output-dtype
@@ -13,6 +15,14 @@ import math
 import torch
 
 FM_GAIN = 0.8  # reference demod/mod/demod_mod.c:22
+
+
+def fm_discriminate(z, gain: float = FM_GAIN):
+    """[..., T] complex IQ tensor -> [..., T] float32 FM audio (first
+    sample 0)."""
+    zprev = torch.cat([z[..., :1], z[..., :-1]], dim=-1)
+    w = z * torch.conj(zprev)
+    return ((gain / math.pi) * torch.atan2(w.imag, w.real)).float()
 
 
 def fm_discriminate_planes_mixed(re, im):
@@ -29,3 +39,16 @@ def fm_discriminate_planes_mixed(re, im):
 def fm_discriminate_planes(x):
     """[..., 2, T] re/im planes -> [..., T] float32 FM audio."""
     return fm_discriminate_planes_mixed(x[..., 0, :], x[..., 1, :])
+
+
+def iq_dc_removal(z, alpha: float | None = None):
+    """Remove the complex DC term over the block: ``z - 0.98 * mean(z)``
+    (the reference detector's leaky DC estimate in its static-shape,
+    block-mean form; ``alpha`` is unused there too)."""
+    return z - 0.98 * torch.mean(z, dim=-1, keepdim=True)
+
+
+def dc_offset(z):
+    """Block-mean DC term: after FM discrimination, a residual-carrier
+    frequency estimate (df = sr * dc / (2 * FM_GAIN))."""
+    return torch.mean(z, dim=-1)

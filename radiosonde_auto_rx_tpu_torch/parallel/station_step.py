@@ -4,7 +4,8 @@ Port of the single-device parts of
 ``radiosonde_auto_rx_tpu/parallel/station_step.py::ShardedStationStep``:
 ``analyze`` (channelize + sparse Welch PSD, the ``n_t == 1`` branch) and
 the fused ``steady_step`` (analyze + recentered extraction of off-grid
-task rows + per-type demod of the active channels), and the full-rate
+task rows + per-type demod of the active channels, the iMet AFSK chains
+on their FM audio), and the full-rate
 confirmation of scan candidates (``confirm`` on the device, then the
 host decision loop ``decide_confirmed``).  There is no mesh:
 multi-device sharding, the prescreen (``screen=True``) and
@@ -20,12 +21,13 @@ from radiosonde_auto_rx_tpu_torch.detect.correlator import (
 from radiosonde_auto_rx_tpu_torch.detect.psd import _welch
 from radiosonde_auto_rx_tpu_torch.detect.scanner import (
     TODO_PRESCREEN, SondeDetector)
+from radiosonde_auto_rx_tpu_torch.models.imet4 import afsk_fm_audio
 from radiosonde_auto_rx_tpu_torch.ops.channelizer import (
     _channelize, _extract, pfb_prototype)
 from radiosonde_auto_rx_tpu_torch.ops.fm import FM_GAIN
 from radiosonde_auto_rx_tpu_torch.ops.resample import resample_planes
 from radiosonde_auto_rx_tpu_torch.station.chains import (
-    CHAIN_TABLE, TODO_AFSK, TODO_WIDE, _demod_cfg)
+    CHAIN_TABLE, demod_chain)
 
 
 class StationStep:
@@ -65,19 +67,15 @@ class StationStep:
         return chf, psd, None
 
     def _chain_for(self, name: str):
-        """(cfg, resample_to) demod chain for a type — identical
-        construction to Station.decode_channels (the AFSK and wideband
-        chains are not ported)."""
+        """(cfg, resample_to, afsk) demod chain for a type — identical
+        construction to Station.decode_channels.  A wideband chain is
+        extracted per task by the station, never fused."""
         if name not in self._chain_cache:
-            chain = CHAIN_TABLE[name]
-            if chain.get("afsk"):
-                raise NotImplementedError(TODO_AFSK)
-            if chain.get("wide_fs", 0) > self.fs_ch:
-                raise NotImplementedError(TODO_WIDE)
-            rs_to = chain.get("resample_to")
-            cfg = _demod_cfg(rs_to or self.fs_ch, chain["rs"],
-                             chain.get("est", 10000), chain.get("mask", 0))
-            self._chain_cache[name] = (cfg, rs_to)
+            if CHAIN_TABLE[name].get("wide_fs", 0) > self.fs_ch:
+                raise ValueError(f"{name} is a wideband chain: the station "
+                                 f"extracts it per task, not in the fused "
+                                 f"step")
+            self._chain_cache[name] = demod_chain(name, self.fs_ch)
         return self._chain_cache[name]
 
     def steady_step(self, wide, idx, blk, rows, ph_m, ph_r, plan,
@@ -114,10 +112,14 @@ class StationStep:
         for name, n in plan:
             rows_t = idx[off:off + n]
             off += n
-            cfg, rs_to = self._chain_for(name)
+            cfg, rs_to, afsk = self._chain_for(name)
             x = chf.index_select(0, rows_t)
             if rs_to:
                 x = resample_planes(x, self.fs_ch, rs_to)
+            if afsk:
+                # Bell-202 audio as a real signal: [audio, 0] planes
+                audio = afsk_fm_audio(x, self.fs_ch)
+                x = torch.stack([audio, torch.zeros_like(audio)], dim=1)
             soft, bits, stats, _ = fsk_demod_stream(cfg, x, self.device)
             outs[name] = (soft, bits, stats)
         return chf, psd, outs

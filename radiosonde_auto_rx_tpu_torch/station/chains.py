@@ -8,6 +8,7 @@ whose module imports JAX; ``_demod_cfg`` builds the port's own
 import numpy as np
 
 from radiosonde_auto_rx_tpu_torch.demod.fsk import FSKConfig
+from radiosonde_auto_rx_tpu_torch.models.imet4 import afsk_demod_config
 
 # Offsets below this demodulate fine at the channel center (every narrow
 # chain's estimator window is >= +-5 kHz); above it the candidate is
@@ -60,11 +61,13 @@ CHAIN_TABLE = {
     "MEISEI": dict(rs=2400, est=10000),
     "MRZ": dict(rs=4800, est=10000),
     "MTS01": dict(rs=1200, est=5000),
-    # iMet-1/4: Bell-202 AFSK rides on the FM audio (not ported yet)
+    # iMet-1/4: Bell-202 AFSK rides on the FM audio — discriminate first,
+    # then FSK-demod the audio tones (``demod_chain``)
     "IMET4": dict(afsk=True),
     "IMET1RS": dict(afsk=True),
     "IMET1AB": dict(afsk=True),
-    # Weathex: 50 kHz tone spacing on a 96 kHz channel (not ported yet)
+    # Weathex: 50 kHz tone spacing on a 96 kHz channel, extracted per
+    # task from the wideband block (``Station.decode_channels``)
     "WXR301": dict(rs=4800, est=55000, mask=50000, wide_fs=96000),
     "WXRPN9": dict(rs=5000, est=55000, mask=50000, wide_fs=96000,
                    resample_to=100000),
@@ -78,12 +81,22 @@ CHAIN_TABLE = {
 MODEL_NAME = {"RD94RD41": "DROPSONDE", "IMET4": "IMET", "IMET1RS": "IMET",
               "IMET1AB": "IMET", "RS92NGP": "RS92"}
 
+
+def demod_chain(name: str, fs_ch: int):
+    """(cfg, resample_to, afsk) demod chain of a type on an ``fs_ch``
+    channel, built as the reference's ``StationStep._chain_for``
+    (``radiosonde_auto_rx_tpu/parallel/station_step.py:614-636``): the
+    AFSK chains demodulate the FM audio at the channel rate."""
+    chain = CHAIN_TABLE[name]
+    if chain.get("afsk"):
+        return afsk_demod_config(fs_ch), None, True
+    rs_to = chain.get("resample_to")
+    cfg = _demod_cfg(rs_to or fs_ch, chain["rs"], chain.get("est", 10000),
+                     chain.get("mask", 0))
+    return cfg, rs_to, False
+
+
 # ROADMAP.md items that port what the slices so far leave out
-TODO_AFSK = "iMet AFSK chains (ROADMAP.md queue 1: iMet AFSK)"
-TODO_WIDE = "wideband chains and the wide scan (ROADMAP.md queue 1: " \
-    "collision and wide-scan paths)"
-TODO_COLLIDE = "second sonde in a channel (ROADMAP.md queue 1: " \
-    "collision and wide-scan paths)"
 TODO_LBAND = "L-band captures (ROADMAP.md queue 1: L-band)"
 TODO_POOL = "the frame-plane worker pool (ROADMAP.md queue 1: " \
     "frame-plane pool)"

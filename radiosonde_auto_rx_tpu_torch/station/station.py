@@ -10,15 +10,23 @@ policy, the full-rate confirmation of new scan candidates, which starts
 a task for each detected sonde, the speculation check, and frame
 decoding into telemetry).
 
+The collect also runs the single-channel paths: a second sonde inside
+a channel whose row is taken (``_process_collision``: its own row
+extracted from the wideband block, then detect + decode) and the 96 kHz
+wide scan of the candidates the PSD width gate flags
+(``_process_wide_candidate``).  The iMet AFSK chains ride the fused
+step like any other type; the Weathex chains are extracted per task at
+their own rate from the retained wideband block (``decode_channels``).
+
 The scan/task policy is a copy of the reference's, with the same
 semantics; the frame decoders, telemetry filter and config are the
 port's copies of the reference's host modules.  Paths not ported yet
 raise ``NotImplementedError`` naming the ROADMAP.md item that ports
-them: a second sonde inside one channel, the wide scan and wideband
-chains, the iMet AFSK chains, L-band captures, and the frame-plane
-worker pool (the frame plane runs inline, ``frame_plane_workers=0``).
+them: L-band captures, the split dispatch and the frame-plane worker
+pool (the frame plane runs inline, ``frame_plane_workers=0``).
 """
 
+import dataclasses
 import logging
 import time
 
@@ -27,16 +35,19 @@ import torch
 
 from radiosonde_auto_rx_tpu_torch.demod.fsk import fsk_demod_stream
 from radiosonde_auto_rx_tpu_torch.detect.psd import scan_peaks
+from radiosonde_auto_rx_tpu_torch.detect.scanner import SondeDetector
+from radiosonde_auto_rx_tpu_torch.detect.templates import TEMPLATES
 from radiosonde_auto_rx_tpu_torch.models import get_model
+from radiosonde_auto_rx_tpu_torch.models.imet4 import afsk_fm_audio
 from radiosonde_auto_rx_tpu_torch.ops.channelizer import (
     channel_freqs, extract_channels, extract_phases, pfb_prototype)
 from radiosonde_auto_rx_tpu_torch.ops.resample import resample_planes
 from radiosonde_auto_rx_tpu_torch.parallel.station_step import StationStep
 from radiosonde_auto_rx_tpu_torch.station import gps_ephem
 from radiosonde_auto_rx_tpu_torch.station.chains import (
-    CHAIN_TABLE, DRIFT_MIN_HZ, MODEL_NAME, RECENTER_MIN_HZ, TODO_AFSK,
-    TODO_COLLIDE, TODO_LBAND, TODO_POOL, TODO_SPLIT, TODO_WIDE,
-    WIDE_SCAN_FS, WIDE_SCAN_WIN_HZ, WIDE_WIDTH_HZ, _demod_cfg)
+    CHAIN_TABLE, DRIFT_MIN_HZ, MODEL_NAME, RECENTER_MIN_HZ, TODO_LBAND,
+    TODO_POOL, TODO_SPLIT, WIDE_SCAN_FS, WIDE_SCAN_WIN_HZ, WIDE_WIDTH_HZ,
+    demod_chain)
 from radiosonde_auto_rx_tpu_torch.station.config import default_config
 from radiosonde_auto_rx_tpu_torch.station.frame_plane import FramePlane
 from radiosonde_auto_rx_tpu_torch.station.telemetry import (
@@ -93,6 +104,9 @@ class Station:
         # was EXTRACTED at (the drift-retune anchor)
         self._offsets = {}
         self._ext_off = {}
+        self._ex_taps = {}           # n_dec -> wide-extraction prototype
+        self._cur_wide = None        # the current block's [2, T] planes
+        self._wide_det = None        # the 96 kHz wide-scan detector
         self._wide_freqs = set()     # last scan's wideband candidates
         self._defer_retunes = None   # fz -> target while a multi-block
                                      # collect is in flight
@@ -124,8 +138,12 @@ class Station:
         return self.center_freq + float(self.profile().freqs[ci])
 
     def freq_of_channel(self, ci: int) -> int:
-        """Absolute (task-key) frequency of channel ``ci``, including any
-        recentering offset registered for it this block."""
+        """Absolute (task-key) frequency of row ``ci``, including any
+        recentering offset registered for it this block.  Rows beyond
+        the PFB grid (a second sonde in one channel, a wide-scan row)
+        store their absolute frequency directly."""
+        if ci >= self.profile().n_chan:
+            return int(round(self._offsets.get(ci, 0.0)))
         return int(round(self._chan_center(ci) +
                          self._offsets.get(ci, 0.0)))
 
@@ -376,10 +394,8 @@ class Station:
         type_cids = {}
         for cid, (name, f_abs) in pred.items():
             b, ci = divmod(cid, n_chan)
-            chain = CHAIN_TABLE[name]
-            if chain.get("wide_fs", 0) > prof.fs_ch or chain.get("afsk"):
-                continue             # not a fused chain: the collect
-                                     # path raises for it
+            if CHAIN_TABLE[name].get("wide_fs", 0) > prof.fs_ch:
+                continue             # wide chains extract per task
             type_cids.setdefault(name, []).append(cid)
             off = f_abs - (centers[b] + float(prof.freqs[ci]))
             if abs(off) >= RECENTER_MIN_HZ:
@@ -507,11 +523,6 @@ class Station:
                 lo = max(0, k - nfft // (2 * n_chan))
                 cand_strength[cid] = float(
                     db[lo:k + nfft // (2 * n_chan) + 1].max())
-        # the collision path and the wide scan are not ported yet
-        if collide:
-            raise NotImplementedError(TODO_COLLIDE)
-        if wide_host:
-            raise NotImplementedError(TODO_WIDE)
         # recenter off-grid rows before demod.  The fused dispatch
         # already recentered the predicted rows; only new/changed rows
         # re-extract here, and rows the dispatch recentered but the
@@ -588,6 +599,7 @@ class Station:
                              for ci, _, _ in items}
             self._ext_off = {ci: ext_cid.get(b * n_chan + ci, 0.0)
                              for ci, _, _ in items}
+            self._cur_wide = wide[b]
             legacy = []
             for ci, name, det in items:
                 cid = b * n_chan + ci
@@ -613,6 +625,19 @@ class Station:
             telems.extend(self._decode_fused(
                 steady["fused"], fused_items, centers, n_chan, cid_off,
                 ext_cid))
+        # second-sonde-in-a-channel fallback: own extracted row through
+        # the single-channel detect + decode path
+        for b, f_abs, forced_name in collide:
+            self.center_freq = centers[b]
+            self._cur_wide = wide[b]
+            telems.extend(self._process_collision(prof, wide[b], f_abs,
+                                                  forced_name))
+        # wideband candidates (Weathex): the 96 kHz wide scan
+        for b, f_abs in wide_host:
+            self.center_freq = centers[b]
+            self._cur_wide = wide[b]
+            telems.extend(self._process_wide_candidate(prof, wide[b],
+                                                       f_abs))
         self.center_freq = centers[-1]
         return telems
 
@@ -634,23 +659,101 @@ class Station:
                     np.atleast_2d(stats_np["ebno_db"])
                     if "ebno_db" in stats_np else None,
                     self._freq_residuals(stats_np, chain,
-                                         bits_np.shape[0]))
-            soft_b, bits_b, eb, resid = cache[name]
+                                         bits_np.shape[0]),
+                    bool(chain.get("afsk")))
+            soft_b, bits_b, eb, resid, afsk = cache[name]
             b, ci = divmod(cid, n_chan)
             self.center_freq = centers[b]
             self._offsets = {ci: cid_off.get(cid, 0.0)}
             fz = self.freq_of_channel(ci)
+            bits = bits_b[j]
+            soft = None if afsk else soft_b[j]
+            if afsk:
+                bits = 1 - bits      # sym 0 = 1200 Hz = bit 1
             snr = None if eb is None else float(eb[j].max())
             fr = None if resid is None else resid[j]
-            fd = self._f_demod_of(ci, ext=ext_cid.get(cid, 0.0))
+            fd = self._f_demod_of(ci, fz, ext=ext_cid.get(cid, 0.0))
             try:
                 out.extend(self._decode_frames(
-                    fz, name, bits_b[j], soft_b[j], snr, None,
+                    fz, name, bits, soft, snr, None,
                     f_resid=fr, f_demod=fd))
             except Exception:
                 log.exception("decode failed on %.3f MHz (%s)",
                               fz / 1e6, name)
         return out
+
+    def _process_collision(self, prof, planes, f_abs: float,
+                           forced_name: str | None = None) -> list:
+        """Detect + decode one candidate whose channel row is already
+        owned by another task (two sondes >= decoder_spacing_limit apart
+        inside one 48 kHz channel): extract its recentered row from the
+        wideband block and run the single-channel path on it.
+        ``forced_name`` (a second manual task) skips detection."""
+        f_rel = f_abs - self.center_freq
+        row = extract_channels(planes, self.fs_wide, [f_rel], prof.n_chan,
+                               self.device, prof.pfb_taps)
+        det = None
+        name = forced_name
+        if name is None:
+            dets = self._step(prof).detector.detect(row)[0]
+            if not dets:
+                return []
+            det = dets[0]
+            self.stats["detections"] += 1
+            name = det.name
+        if name not in CHAIN_TABLE and name not in MODEL_NAME:
+            return []
+        n_chan = prof.n_chan
+        self._offsets = {n_chan: float(f_abs)}   # virtual row
+        self._ext_off[n_chan] = float(f_abs)     # demod anchor = here
+        return self.decode_channels(row, [(0, det)], name,
+                                    chan_map={0: n_chan})
+
+    def _wide_scan_detector(self) -> SondeDetector:
+        """The 96 kHz detector for wideband types: the real ±25 kHz tone
+        pairs are outside any 48 kHz channel, so wide candidates
+        re-detect on a 96 kHz extraction with a 64 kHz IF class (the
+        audio lowpass then recovers the baud pattern)."""
+        if self._wide_det is None:
+            specs = [dataclasses.replace(s, lp_iq=0)
+                     for s in TEMPLATES if s.name.startswith("WXR")]
+            self._wide_det = SondeDetector(
+                WIDE_SCAN_FS, specs=specs,
+                bw_table=(64e3, 64e3, 64e3, 200e3), device=self.device)
+        return self._wide_det
+
+    def _wide_taps(self, n_dec: int) -> np.ndarray:
+        """The ``n_dec``-branch extraction prototype, built once."""
+        if n_dec not in self._ex_taps:
+            self._ex_taps[n_dec] = pfb_prototype(n_dec)
+        return self._ex_taps[n_dec]
+
+    def _process_wide_candidate(self, prof, planes, f_abs: float) -> list:
+        """Wide-scan one flagged candidate: extract a 96 kHz channel at
+        its carrier from the wideband block, detect with the wide bank,
+        decode through the wideband chain.  Falls back to the narrow
+        single-channel path when no wide type confirms (the width gate
+        can fire on overlapping narrow signals)."""
+        n_dec = self.fs_wide // WIDE_SCAN_FS
+        f_rel = float(f_abs) - self.center_freq
+        row96 = extract_channels(planes, self.fs_wide, [f_rel], n_dec,
+                                 self.device, self._wide_taps(n_dec))
+        dets = self._wide_scan_detector().detect(row96)[0]
+        if not dets:
+            return self._process_collision(prof, planes, f_abs)
+        det = dets[0]
+        self.stats["detections"] += 1
+        name = det.name
+        if name not in CHAIN_TABLE:
+            return []
+        n_chan = prof.n_chan
+        self._offsets[n_chan] = float(f_abs)     # virtual row
+        self._ext_off[n_chan] = float(f_abs)     # demod anchor = here
+        # the detection row is already at WIDE_SCAN_FS — reuse it when
+        # that IS the chain's rate (WXR*); other rates re-extract
+        ready = int(CHAIN_TABLE[name].get("wide_fs", 0)) == WIDE_SCAN_FS
+        return self.decode_channels(row96, [(0, det)], name,
+                                    chan_map={0: n_chan}, wide_ready=ready)
 
     def _recenter_cids(self, chf, wide, prof, rec: dict):
         """Scatter recentered extractions over the channel rows
@@ -704,52 +807,101 @@ class Station:
             self.temporary_blocks[fz] = time.time() + lockout_minutes * 60
         return fz
 
-    def decode_channels(self, ch, items, name: str) -> list:
+    def decode_channels(self, ch, items, name: str, chan_map=None,
+                        wide_ready: bool = False) -> list:
         """Batched demod + per-channel decode for one sonde type (the
-        split path a speculation miss takes).  ch: [N, 2, T] channel
-        planes on the device; items: [(channel_index, det)]."""
+        split path a speculation miss takes, and the single-channel
+        paths).  ch: [N, 2, T] channel planes on the device; items:
+        [(channel_index, det)]; ``chan_map``: item index -> the row the
+        task lives on (``ch`` then holds exactly the items' rows);
+        ``wide_ready``: ``ch`` is already extracted at the chain's
+        ``wide_fs``."""
         chain = CHAIN_TABLE[name]
         fs = self.fs_ch
-        if chain.get("wide_fs", 0) > fs:
-            raise NotImplementedError(TODO_WIDE)
-        if chain.get("afsk"):
-            raise NotImplementedError(TODO_AFSK)
-        idx = torch.tensor([ci for ci, _ in items], device=ch.device)
-        iq = ch.index_select(0, idx)
-        if "resample_to" in chain:
-            iq = resample_planes(iq, fs, chain["resample_to"])
-            fs = chain["resample_to"]
-        cfg = _demod_cfg(fs, chain["rs"], chain.get("est", 10000),
-                         chain.get("mask", 0))
-        soft_b, bits_b, stats, _ = fsk_demod_stream(cfg, iq, self.device)
-        bits_b, soft_b = _np(bits_b), _np(soft_b)
+        wide_mode = chain.get("wide_fs", 0) > fs
+        if wide_mode and wide_ready:
+            iq = ch
+            fs = int(chain["wide_fs"])
+        elif wide_mode:
+            # a wideband chain on a narrow station: extract the wide
+            # channel around each task frequency from the retained
+            # wideband block
+            wfs = int(chain["wide_fs"])
+            if self._cur_wide is None or self.fs_wide % wfs != 0:
+                log.warning(
+                    "%s needs a %d Hz channel (station capture %d Hz "
+                    "%s) — use a capture rate divisible by %d",
+                    name, wfs, self.fs_wide,
+                    "not retained" if self._cur_wide is None
+                    else "not divisible", wfs)
+                return []
+            n_dec = self.fs_wide // wfs
+            f_rel = [self.freq_of_channel(chan_map[ci] if chan_map
+                                          else ci) - self.center_freq
+                     for ci, _ in items]
+            iq = extract_channels(self._cur_wide, self.fs_wide, f_rel,
+                                  n_dec, self.device, self._wide_taps(n_dec))
+            fs = wfs
+        elif chan_map is None:
+            iq = ch.index_select(0, torch.tensor([ci for ci, _ in items],
+                                                 device=ch.device))
+        else:
+            iq = ch
+        cfg, rs_to, afsk = demod_chain(name, fs)
+        if rs_to:
+            iq = resample_planes(iq, fs, rs_to)
+        if afsk:
+            # IF lowpass -> FM discriminate -> audio lowpass (imet4iq's
+            # front end), then FSK-demod the Bell-202 audio tones
+            audio = afsk_fm_audio(iq, fs)
+            planes = torch.stack([audio, torch.zeros_like(audio)], dim=1)
+            _, bits_b, stats, _ = fsk_demod_stream(cfg, planes, self.device)
+            bits_b = 1 - _np(bits_b)     # sym 0 = 1200 Hz = bit 1
+            soft_b = None
+        else:
+            soft_b, bits_b, stats, _ = fsk_demod_stream(cfg, iq,
+                                                        self.device)
+            bits_b, soft_b = _np(bits_b), _np(soft_b)
         stats = {k: _np(v) for k, v in stats.items()}
         out = []
         ebno = np.atleast_2d(stats["ebno_db"]) if "ebno_db" in stats \
             else None
         resid = self._freq_residuals(stats, chain, len(items))
         for j, (ci, det) in enumerate(items):
-            fz = self.freq_of_channel(ci)
+            real_ci = chan_map[ci] if chan_map else ci
+            fz = self.freq_of_channel(real_ci)
             try:
                 out.extend(self._decode_frames(
-                    fz, name, bits_b[j], soft_b[j],
+                    fz, name, bits_b[j],
+                    None if soft_b is None else soft_b[j],
                     None if ebno is None else float(ebno[j].max()), det,
                     f_resid=resid[j] if resid is not None else None,
-                    f_demod=self._f_demod_of(ci)))
+                    f_demod=self._f_demod_of(real_ci, fz, wide_mode)))
             except Exception:
                 # one bad channel/decoder must not kill the capture loop
                 log.exception("decode failed on %.3f MHz (%s)",
                               fz / 1e6, name)
         return out
 
-    def _f_demod_of(self, ci: int, ext=None) -> float:
-        """Absolute frequency channel ``ci`` was DEMODULATED at (the
-        drift-retune anchor): the channel center plus the row's actual
-        extraction offset (0 for plain PFB rows); ``ext`` overrides the
-        offset lookup for callers that track offsets in cid-space."""
+    def _f_demod_of(self, real_ci: int, fz: int, wide_mode: bool = False,
+                    ext=None) -> float:
+        """Absolute frequency row ``real_ci`` was DEMODULATED at (the
+        drift-retune anchor, so every decode path goes through here): the
+        task frequency for a wide extraction, the recorded extraction
+        frequency for a row beyond the PFB grid, else the channel center
+        plus the row's actual extraction offset (0 for plain PFB rows).
+        ``ext`` overrides the offset lookup for callers that track
+        offsets in cid-space."""
+        if wide_mode:
+            return float(fz)
+        if real_ci >= self.profile().n_chan:
+            # a virtual row records its absolute extraction frequency; fz
+            # may since have moved by a detector refinement it never saw
+            base = self._ext_off.get(real_ci)
+            return float(fz) if base is None else float(base)
         if ext is None:
-            ext = self._ext_off.get(ci, 0.0)
-        return self._chan_center(ci) + float(ext)
+            ext = self._ext_off.get(real_ci, 0.0)
+        return self._chan_center(real_ci) + float(ext)
 
     @staticmethod
     def _freq_residuals(stats, chain, n_items):

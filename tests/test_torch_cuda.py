@@ -68,9 +68,12 @@ def test_k1_matches_twin(dev, name, c):
     assert float(err) <= 1e-5
 
 
-# every ported FSK chain of the station's table, and an FSK4 config
+# every FSK chain of the station's narrow profile (the iMet chains' audio
+# demod as "AFSK"; the Weathex chains at their own rates), and an FSK4
+# config
 SCAN_CHAINS = sorted({"RS41", "RS92", "DFM", "M10", "M20", "LMS6", "IMET5",
-                      "MEISEI", "MRZ", "MTS01", "RD94RD41"}) + ["FSK4"]
+                      "MEISEI", "MRZ", "MTS01", "RD94RD41", "WXR301",
+                      "WXRPN9"}) + ["AFSK", "FSK4"]
 
 
 @pytest.mark.parametrize("c", [1, 2, 16])

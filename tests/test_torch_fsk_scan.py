@@ -15,7 +15,9 @@ Inputs: modulated signals with noise (``chip_smoke.fsk_signal``, the
 port's copy of the modulator), 2 channels, a few demod blocks of each
 chain geometry the station uses (M10's odd n = 745, M20, RS41's mask
 estimator, LMS6's peak estimator, DFM at 50 kHz, MEISEI, MTS01's
-ndft 512) and an FSK4 configuration.  Tolerances (``chip_smoke.
+ndft 512, the iMet AFSK audio with P = 8 and a real input, WXR301 at
+96 kHz and WXRPN9 at 100 kHz with the mask comb over the whole ndft 256
+spectrum) and an FSK4 configuration.  Tolerances (``chip_smoke.
 scan_diff``, what the card is held to): bits, tone estimates, ptr and nin
 equal; soft decisions, spectra and tone magnitudes within 1e-4 of their
 peak; timing to 1e-4; the Eb/N0 bound of ``tests/test_torch_fsk.py``.
@@ -36,7 +38,8 @@ from radiosonde_auto_rx_tpu_torch.demod import fsk
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
 SHIM = Path(__file__).parent / "cuda_shim"
-CHAINS = ("M10", "M20", "RS41", "LMS6", "DFM", "MEISEI", "MTS01", "FSK4")
+CHAINS = ("M10", "M20", "RS41", "LMS6", "DFM", "MEISEI", "MTS01", "AFSK",
+          "WXR301", "WXRPN9", "FSK4")
 
 
 def _signal(name, c=2, blocks=3, seed=0):
@@ -102,7 +105,7 @@ def test_kernel_source_matches_twin(scan_host, tmp_path, name, stages):
     cs.scan_diff(got, want, name)
 
 
-@pytest.mark.parametrize("name", ["RS41", "M10", "DFM"])
+@pytest.mark.parametrize("name", ["RS41", "M10", "DFM", "AFSK", "WXR301"])
 def test_kernel_source_carried_state(scan_host, tmp_path, name):
     """From the twin's final state (EMA spectrum, timing, ppm, pointer
     carried), over the same input again."""

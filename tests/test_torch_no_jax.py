@@ -7,9 +7,12 @@ drives its station on the CPU at 8 channels (384 kHz) over the smoke
 script's three sondes (RS41 on grid, RS41 +10 kHz off grid, DFM), as
 four 1 s blocks and as two 2 s blocks, exactly as ``chip_smoke.py``
 drives them on the card: once with the sondes as manual tasks, once
-with no task, so that the station finds them by itself.  It checks the
-telemetry, the detections, that every frame decoder of the port's
-registry imported, and that no blocked module was loaded.  A static
+with no task, so that the station finds them by itself.  A second child
+drives the remaining paths on phase 8's sondes (an iMet-4, a WXR301
+off grid, two RS41s in one channel; ``wideband_sondes`` on) as two 2 s
+blocks, with and without manual tasks.  They check the telemetry, the
+detections, that every frame decoder of the port's registry imported,
+and that no blocked module was loaded.  A static
 check keeps ``import jax`` and imports of the JAX package out of the
 port's files and the smoke script.
 """
@@ -25,7 +28,7 @@ import torch
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 
-CHILD = r"""
+BLOCKER = r"""
 import json, sys
 sys.path.insert(0, sys.argv[1])
 
@@ -44,6 +47,9 @@ sys.meta_path.insert(0, _NoJax())
 import torch
 torch.set_num_threads(1)
 import chip_smoke as cs
+"""
+
+CHILD = BLOCKER + r"""
 from radiosonde_auto_rx_tpu_torch.models import available_models
 
 n, fs = 8, 384_000
@@ -67,12 +73,40 @@ print(json.dumps(out))
 """
 
 
-def test_slice_runs_without_jax():
-    res = subprocess.run([sys.executable, "-c", CHILD, str(ROOT)],
+PATHS_CHILD = BLOCKER + r"""
+n, fs = 8, 384_000
+sondes = cs.path_sondes_for(n, fs)
+stream = cs.synth_stream(n, fs, 4, seed=23, sondes=cs.path_sondes_for)
+runs = [cs.split_blocks(stream, fs, 2)]
+out = {}
+for manual in (True, False):
+    results, launches = cs.drive_station(
+        torch.device("cpu"), runs, n, fs, manual, cs.path_sondes_for,
+        wideband_sondes=True)
+    st, telems, per_block = results[0]
+    cs.check_detections(per_block, [(t, cs.CENTER + f)
+                                    for t, _, f, _, _ in sondes])
+    out[str(manual)] = dict(
+        seen=cs.check_telemetry(telems, n, fs, [t for t, *_ in sondes],
+                                cs.path_sondes_for),
+        launches=launches, detections=st.stats["detections"],
+        tasks=sorted(v["type"] for v in st.active.values()))
+out["blocked"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in BLOCKED)
+print(json.dumps(out))
+"""
+
+
+def _child(code):
+    res = subprocess.run([sys.executable, "-c", code, str(ROOT)],
                          capture_output=True, text=True, timeout=300,
                          cwd=ROOT)
     assert res.returncode == 0, res.stderr[-4000:]
-    out = json.loads(res.stdout.strip().splitlines()[-1])
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def test_slice_runs_without_jax():
+    out = _child(CHILD)
     assert out["blocked"] == []
     for manual in ("True", "False"):
         run = out[manual]
@@ -89,6 +123,20 @@ def test_slice_runs_without_jax():
     assert out["False"]["tasks"] == [["DFM", "RS41", "RS41"]] * 2
     assert {"RS41", "RS92", "DFM", "M10", "M20", "LMS6", "IMET5",
             "MEISEI", "MRZ", "MTS01", "DROPSONDE"} <= set(out["models"])
+
+
+def test_remaining_paths_run_without_jax():
+    out = _child(PATHS_CHILD)
+    assert out["blocked"] == []
+    for manual in ("True", "False"):
+        run = out[manual]
+        assert len(run["seen"]) == 4 and all(
+            v > 0 for v in run["seen"].values())
+        assert run["tasks"] == ["IMET4", "RS41", "RS41", "WXR301"]
+        assert run["launches"] == {"freq_est_sf": 0, "fft_abs2": 0,
+                                   "fft": 0, "fsk_scan": 0}
+    assert out["True"]["detections"] == 0
+    assert out["False"]["detections"] >= 4
 
 
 def test_no_jax_import_in_port_sources():

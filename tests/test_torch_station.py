@@ -101,16 +101,29 @@ def test_steady_step_outputs_match(runs):
 
 
 def test_out_of_slice_paths_raise():
-    """Paths not ported yet raise, naming the ROADMAP item, rather than
-    being silently dropped: a second sonde inside a taken channel (the
-    collision path) and L-band captures."""
+    """A second sonde inside a taken channel goes through the collision
+    path as in the reference; paths not ported yet (L-band captures)
+    raise, naming the ROADMAP item, rather than being silently
+    dropped."""
+    # a manual task 20 kHz above the RS41, in its channel: the RS41's
+    # scan peak is too far from the task to be absorbed by it, so the
+    # sonde itself is the second signal in the channel
+    cap = _capture(0.0, -20e3, seed=5)
+    mesh = make_mesh(n_ch=1, n_t=1, devices=jax.devices()[:1])
+    ref = RefStation(_cfg(), exporters=[_Col()], center_freq_hz=CENTER,
+                     mesh=mesh)
     st = Station(_cfg(), exporters=[_Col()], center_freq_hz=CENTER,
                  device="cpu")
-    # a manual task 20 kHz above the RS41, in its channel: the RS41's
-    # scan peak is too far from the task to be absorbed by it
-    st.start_manual_decoder(RS41_F + 20e3, "RS41")
-    with pytest.raises(NotImplementedError, match="second sonde"):
-        st.process_captures([_capture(0.0, -20e3, seed=5)])
+    out = []
+    for s in (ref, st):
+        s.start_manual_decoder(RS41_F + 20e3, "RS41")
+        out.append((sorted(map(_key, s.process_captures([cap]))),
+                    sorted((v["type"], f) for f, v in s.active.items()),
+                    s.stats["detections"]))
+    assert out[1] == out[0]
+    telems, tasks, detections = out[0]
+    assert detections >= 1 and {k[1] for k in telems} >= {"T1357911"}
+    assert ("RS41", int(RS41_F + 20e3)) in tasks
     with pytest.raises(NotImplementedError, match="L-band"):
         st.process_captures([_capture(0.0, 0.0, seed=5)], [1680e6])
     with pytest.raises(TypeError):           # no silent default device

@@ -9,8 +9,9 @@ control's "disable scanner" state): both stations must decode the same
 telemetry (``_key``) and end with the same task keys.  With the scanner
 on, the M10's spectral sidelobes nominate raster points 22 kHz either
 side of it — beyond ``decoder_spacing_limit``, inside its own channel —
-which the reference sends to its collision path (detection on an
-extracted row); the port has no detection yet and raises.
+which both stations send to the collision path (detection on an
+extracted row), where nothing is detected: the same telemetry, tasks
+and collision calls.
 
 The fixture's sondes sit ~54 dB above its noise, where the demod's
 Eb/N0 (``mean(mx^2) - mean(mx)^2`` in float32) is cancellation noise
@@ -73,8 +74,30 @@ def test_m10_m20_match_reference(caps):
 
 
 def test_m10_sidelobe_candidates_need_collision_path(clean):
-    st = Station(_cfg(), exporters=[_Col()], center_freq_hz=CENTER,
-                 device="cpu")
-    st.start_manual_decoder(CENTER + FREQS[M10_CH], "M10")
-    with pytest.raises(NotImplementedError, match="collision"):
-        st.process_captures([clean[0]])
+    mesh = make_mesh(n_ch=1, n_t=1, devices=jax.devices()[:1])
+    ref = RefStation(_cfg(), exporters=[_Col()], center_freq_hz=CENTER,
+                     mesh=mesh)
+    port = Station(_cfg(), exporters=[_Col()], center_freq_hz=CENTER,
+                   device="cpu")
+    out = []
+    for st in (ref, port):
+        st.start_manual_decoder(CENTER + FREQS[M10_CH], "M10")
+        seen = []
+        collide = st._process_collision
+
+        def counted(prof, planes, f_abs, forced=None, collide=collide,
+                    seen=seen):
+            seen.append((round(f_abs), forced))
+            return collide(prof, planes, f_abs, forced)
+        st._process_collision = counted
+        telems = st.process_captures([clean[0]])
+        out.append((sorted(map(_key, telems)), sorted(st.active), seen,
+                    st.stats["detections"]))
+    (t_r, a_r, s_r, d_r), (t_p, a_p, s_p, d_p) = out
+    # the sidelobes 22 kHz either side went to the collision path, found
+    # nothing there, and the M10 decoded as before
+    assert len(s_r) == 2 and all(abs(abs(f - CENTER - FREQS[M10_CH]) - 22e3)
+                                 < 2e3 and forced is None for f, forced in s_r)
+    assert d_r == 0 and a_r == [int(CENTER + FREQS[M10_CH])]
+    assert {k[0] for k in t_r} == {"M10"}
+    assert (t_p, a_p, s_p, d_p) == (t_r, a_r, s_r, d_r)
