@@ -647,8 +647,8 @@ def fsk_demod_stream(cfg: FSKConfig, x, device, state: FSKState | None = None,
     ``fsk_scan``.  Only the buffered scan is ported."""
     if not buffered:
         raise NotImplementedError(
-            "the unbuffered FSK scan is not ported (ROADMAP.md queue 1, "
-            "'FSK demod core')")
+            "the unbuffered FSK scan is not ported (ROADMAP.md queue 1: "
+            "CLI, sources and tools, with demod/cli.py)")
     is_cplx = x.is_complex() if isinstance(x, torch.Tensor) \
         else np.iscomplexobj(x)
     squeeze = is_cplx and len(x.shape) == 1

@@ -4,11 +4,14 @@ Port of ``radiosonde_auto_rx_tpu/detect/correlator.py`` in the form the
 reference takes off the TPU: the overlap-save FFT correlation
 (``_corr_fft``; the direct correlation ``_corr_direct`` below 2·Lmax
 samples) and the exact per-position peak search
-(``_correlate_peaks_exact``).  The TPU-only forms (``_corr_toeplitz``,
-``_correlate_peaks_blocknorm(_scan)``) and the ``RSX_DETECT_*``
-switches are not ported.  The host decision loop (header re-read,
-M10/M20 and iMet subtype disambiguation) is the reference's NumPy code,
-copied.
+(``_correlate_peaks_exact``), which ``detect_types`` takes on every
+device, as the reference does off a TPU.  The chunked block-normalized
+peak search ``_correlate_peaks_blocknorm_scan`` is ported because the
+prescreen takes it on every platform (its ``positions=False`` form);
+the monolithic ``_correlate_peaks_blocknorm``, ``_corr_toeplitz`` and
+the ``RSX_DETECT_*`` switches, which the reference takes only on a TPU,
+are not.  The host decision loop (header re-read, M10/M20 and iMet
+subtype disambiguation) is the reference's NumPy code, copied.
 
 Numerics: the normalization takes ``s2 - L·dc²`` from differences of
 float32 cumulative sums over the whole stream (48,000 samples), a
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from radiosonde_auto_rx_tpu_torch.ops.fir import _fp32_conv
+from radiosonde_auto_rx_tpu_torch.ops.fir import _full_fp32
 
 
 @dataclass
@@ -54,7 +57,7 @@ def _windowed_sums(x, lens):
 
 def _corr_direct(x, bank):
     """Direct correlation: [C, T] * [K, Lmax] -> [C, K, T']."""
-    with _fp32_conv():
+    with _full_fp32():
         return F.conv1d(x[:, None, :], bank[:, None, :])
 
 
@@ -109,6 +112,18 @@ def _correlate(x, bank, lens):
     return corr, xnorm, dc
 
 
+def correlate_bank(x, bank, lens):
+    """Normalized correlation scores of FM stream(s) x ([T] or [C, T]
+    tensor) against ``bank`` [K, Lmax] (moved to x's device), on x's
+    device: (scores [C, K, T'] in [-1, 1], dc [C, K, T'])."""
+    x = x.float()
+    if x.dim() == 1:
+        x = x[None, :]
+    corr, xnorm, dc = _correlate(x, torch.as_tensor(bank).to(x.device),
+                                 [int(v) for v in lens])
+    return corr / xnorm, dc
+
+
 def _correlate_peaks_exact(x, bank, lens):
     """Correlate + per-(channel, type) peak reduction: only [C, K] peak
     values, positions and DC (plus the [C] stream mean for the
@@ -121,6 +136,139 @@ def _correlate_peaks_exact(x, bank, lens):
     val = torch.gather(score, -1, ipk)[..., 0]
     dcpk = torch.gather(dc, -1, ipk)[..., 0]
     return val, ipk[..., 0].int(), dcpk, torch.mean(x.float(), dim=-1)
+
+
+def banded_operand(bank, block: int = 128) -> torch.Tensor:
+    """The einsum-Toeplitz operand of a template bank [K, Lmax]:
+    w[i, k*B + j] = bank[k, i - j] for 0 <= i - j < Lmax, [W, K*B] with
+    W = ceil((B + Lmax - 1)/B)*B, float32 on the bank's device.  A frame
+    x[m*B : m*B + W] times w is the raw correlation at t = m*B + j.
+    Built once per bank by its owner (``Prescreen``)."""
+    bank = torch.as_tensor(bank)
+    K, lmax = bank.shape
+    B = int(block)
+    W = -(-(B + lmax - 1) // B) * B
+    h = bank.detach().cpu().numpy().astype(np.float32)
+    w = np.zeros((W, K, B), np.float32)
+    for j in range(B):
+        w[j:j + lmax, :, j] = h.T
+    return torch.from_numpy(w.reshape(W, K * B)).to(bank.device)
+
+
+def _correlate_peaks_blocknorm_scan(x, bank, lens, block: int = 128,
+                                    m_chunk: int = 128,
+                                    positions: bool = True, w=None):
+    """Peak search with block-granular normalization, one M-chunk of the
+    banded correlation matmul at a time (JAX
+    ``correlator._correlate_peaks_blocknorm_scan``, its ``lax.scan`` a
+    Python loop here): per (channel, type) the best |corr - dc·tsum| /
+    xnorm over the stream, with xnorm and dc taken once per ``block``
+    output positions from block cumsums over a window that covers
+    t..t+L+B; padded positions never win (-1 in the in-block max, -inf
+    across blocks); windows quieter than 0.05·sqrt(L)·rms score 0; ties
+    go to the first occurrence.  ``positions=True`` also returns each
+    peak's position and rescores it exactly (per-sample norms at the
+    peak); ``positions=False`` (the prescreen) returns only the
+    block-normalized |score|.  ``w``: the bank's ``banded_operand``,
+    built here when not given.  The matmuls run in full float32.
+
+    x: [C, T] float32; bank: [K, Lmax].  Returns (val [C, K],
+    t_pk [C, K] int32, dc_pk [C, K], xm [C])."""
+    x = x.float()
+    C, T = x.shape
+    K, lmax = bank.shape
+    dev = x.device
+    lens = [int(v) for v in lens]
+    B = int(block)
+    nvalid = T - lmax + 1
+    M = -(-nvalid // B)
+    nbw = -(-(B + lmax - 1) // B)
+    W = nbw * B
+    Mc = min(int(m_chunk), M)
+    nch = -(-M // Mc)
+    if w is None:
+        w = banded_operand(bank, B)
+    Mb = -(-T // B)
+    pad_to = max((nch * Mc + nbw) * B, Mb * B)
+    xp = F.pad(x, (0, pad_to - T))
+    xb = xp.reshape(C, -1, B)
+
+    # block-granular norm terms, padded over the chunk grid
+    xbn = xb[:, :Mb]
+    zero = x.new_zeros(C, 1)
+    cs1b = torch.cat([zero, torch.cumsum(xbn.sum(-1), dim=-1)], dim=-1)
+    cs2b = torch.cat([zero, torch.cumsum((xbn * xbn).sum(-1), dim=-1)],
+                     dim=-1)
+    tsum = bank.float().sum(dim=-1)                         # [K]
+    rms = torch.sqrt(torch.mean(x * x, dim=-1))             # [C]
+    m_idx = torch.arange(M, device=dev)
+    dcs, xns = [], []
+    for L in lens:
+        lb = min(-(-L // B) + 1, Mb)
+        lo = torch.clamp(m_idx, max=Mb - lb)[None].expand(C, M)
+        s1 = cs1b.gather(1, lo + lb) - cs1b.gather(1, lo)
+        s2 = cs2b.gather(1, lo + lb) - cs2b.gather(1, lo)
+        n = float(lb * B)
+        dc_a = s1 / n
+        dcs.append(dc_a)
+        xns.append(torch.sqrt(torch.clamp(s2 - n * dc_a * dc_a, min=1e-12)))
+    grid = nch * Mc - M
+    dc_all = F.pad(torch.stack(dcs, dim=2), (0, 0, 0, grid))   # [C, M', K]
+    xn_all = F.pad(torch.stack(xns, dim=2), (0, 0, 0, grid), value=1.0)
+    lensf = torch.tensor(lens, dtype=torch.float32, device=dev)
+    floor_ck = 0.05 * torch.sqrt(lensf)[None, :] * rms[:, None]   # [C, K]
+    frames = xp.unfold(-1, W, B)                            # [C, *, W]
+    jB = torch.arange(B, device=dev)
+    kB = torch.arange(K, device=dev)[None, :] * B
+    neg1 = x.new_tensor(-1.0)
+    best = x.new_full((C, K), float("-inf"))
+    t_pk = torch.zeros(C, K, dtype=torch.int64, device=dev)
+    corr_pk = x.new_zeros(C, K)
+    for i in range(nch):
+        m0 = i * Mc
+        with _full_fp32():
+            corr = torch.matmul(frames[:, m0:m0 + Mc], w)   # [C, Mc, K*B]
+        corr = corr.reshape(C, Mc, K, B)
+        dc_c = dc_all[:, m0:m0 + Mc]
+        xn_c = xn_all[:, m0:m0 + Mc]
+        t_pos = (m0 + torch.arange(Mc, device=dev))[:, None] * B + jB
+        valid = t_pos < nvalid                              # [Mc, B]
+        y = torch.abs(corr - dc_c[..., None] * tsum[None, None, :, None])
+        y = torch.where(valid[None, :, None, :], y, neg1)
+        y_best, j_best = torch.max(y, dim=-1)               # [C, Mc, K]
+        score = y_best / xn_c
+        score = torch.where(xn_c < floor_ck[:, None, :],
+                            torch.zeros_like(score), score)
+        score = torch.where((t_pos[:, 0] < nvalid)[None, :, None], score,
+                            torch.full_like(score, float("-inf")))
+        if not positions:
+            best = torch.maximum(best, score.amax(dim=1))
+            continue
+        s_loc, m_loc = torch.max(score, dim=1)              # [C, K]
+        j_loc = j_best.gather(1, m_loc[:, None, :])[:, 0]
+        corr_loc = corr.reshape(C, Mc * K * B).gather(
+            1, m_loc * (K * B) + kB + j_loc)
+        upd = s_loc > best
+        best = torch.where(upd, s_loc, best)
+        t_pk = torch.where(upd, (m0 + m_loc) * B + j_loc, t_pk)
+        corr_pk = torch.where(upd, corr_loc, corr_pk)
+    xm = torch.mean(x, dim=-1)
+    if not positions:
+        zero = x.new_zeros(C, K)
+        return best, zero.int(), zero, xm
+    # exact per-position rescore at the peak
+    cs1 = torch.cat([zero, torch.cumsum(x, dim=-1)], dim=-1)
+    cs2 = torch.cat([zero, torch.cumsum(x * x, dim=-1)], dim=-1)
+    lensj = torch.tensor(lens, dtype=torch.int64, device=dev)[None, :]
+    s1p = cs1.gather(1, t_pk + lensj) - cs1.gather(1, t_pk)
+    s2p = cs2.gather(1, t_pk + lensj) - cs2.gather(1, t_pk)
+    dc_pk = s1p / lensf[None, :]
+    xn_pk = torch.sqrt(torch.clamp(s2p - lensf[None, :] * dc_pk * dc_pk,
+                                   min=1e-12))
+    floor = 0.05 * torch.sqrt(lensf)[None, :] * rms[:, None]
+    val = (corr_pk - dc_pk * tsum[None, :]) / xn_pk
+    val = torch.where(xn_pk < floor, torch.zeros_like(val), val)
+    return val, t_pk.int(), dc_pk, xm
 
 
 def _headcmp(x_c, spec, start, fs, inverted, dc):

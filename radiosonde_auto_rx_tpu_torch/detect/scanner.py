@@ -1,13 +1,16 @@
 """Sonde detector: IQ conditioning + template-bank correlation.
 
 Port of ``radiosonde_auto_rx_tpu/detect/scanner.py`` (``LPIQ_BW``,
-``LPFM_BW``, ``SondeDetector``) as the station uses it: the full-rate
-pass, without the half-rate ``Prescreen``.  Per IF bandwidth class
-(6/12/22/200 kHz, reference scan/dft_detect.c:148-149): an IF lowpass
-over the re/im planes, one FM discriminator, an FM-audio lowpass, then
-the class's templates correlated against the stream — batched over
-channels, float32 throughout (the reference's ``stream_dtype`` is
-float32 off the TPU).
+``LPIQ_BW_LBAND``, ``LPFM_BW``, ``SondeDetector``).  Per IF bandwidth
+class (6/12/22/200 kHz, or the 1680 MHz table with ``lband``;
+reference scan/dft_detect.c:148-149, :1405-1410): an IF lowpass over
+the re/im planes, one FM discriminator, an FM-audio lowpass, then the
+class's templates correlated against the stream — batched over
+channels, float32 throughout (the reference's bfloat16 ``stream_dtype``
+applies only on a TPU, and its ``RSX_DETECT_DTYPE`` switch is not
+ported).  As in the reference, the half-rate ``Prescreen``
+(``detect/prescreen.py``) is built by default (not for L-band) and
+rejects empty channels of a batch of 8 or more before the full pass.
 """
 
 import numpy as np
@@ -15,6 +18,7 @@ import torch
 
 from radiosonde_auto_rx_tpu_torch.demod.fsk import iq_planes
 from radiosonde_auto_rx_tpu_torch.detect.correlator import detect_types
+from radiosonde_auto_rx_tpu_torch.detect.prescreen import MARGIN, Prescreen
 from radiosonde_auto_rx_tpu_torch.detect.templates import (
     TEMPLATES, build_template_bank)
 from radiosonde_auto_rx_tpu_torch.ops.fir import (
@@ -24,29 +28,45 @@ from radiosonde_auto_rx_tpu_torch.ops.fm import (
 
 # IF lowpass bandwidth per class (dft_detect.c:148-149)
 LPIQ_BW = (6e3, 12e3, 22e3, 200e3)
+# L-band rescaled class table (dft_detect.c -L flag :1405-1410): wider
+# deviations at 1680 MHz, incl. the RS92-NGP 32 kHz tweak (scan.py:461)
+LPIQ_BW_LBAND = (20e3, 32e3, 200e3, 400e3)
 # FM-audio lowpass (dft_detect.c:148: 4k narrow, 10k wide)
 LPFM_BW = (4e3, 10e3)
-
-TODO_PRESCREEN = ("the half-rate Prescreen and analyze(screen=True) "
-                  "(ROADMAP.md queue 1: detection prescreen)")
 
 
 class SondeDetector:
     """Detect sonde type(s) in IQ channels at rate ``fs`` on ``device``.
 
     Usage: ``SondeDetector(fs, device=dev).detect(iq)`` -> list of
-    Detection (per channel when input is batched).  ``bw_table``: the IF
-    lowpass bandwidth of each class (default ``LPIQ_BW``; the station's
-    96 kHz wide scan passes its own)."""
+    Detection (per channel when input is batched).  ``lband=True``
+    selects the 1680 MHz IF bandwidth table; ``bw_table`` overrides the
+    table (the station's 96 kHz wide scan passes its own).  The
+    prescreen is built unless ``prescreen=False`` or ``lband``; a class
+    too wide for its half rate leaves ``self.prescreen`` None."""
 
     def __init__(self, fs: int = 48000, specs=None, taps: int = 97,
-                 prescreen: bool = False, bw_table=None, *, device):
-        if prescreen:
-            raise NotImplementedError(TODO_PRESCREEN)
+                 lband: bool = False, prescreen: bool = True,
+                 prescreen_margin: float | None = None, bw_table=None, *,
+                 device):
         self.fs = fs
+        self.lband = lband
         self.device = torch.device(device)
-        bw_table = LPIQ_BW if bw_table is None else bw_table
+        if bw_table is None:
+            bw_table = LPIQ_BW_LBAND if lband else LPIQ_BW
         specs = TEMPLATES if specs is None else specs
+        self.prescreen = None
+        if prescreen and not lband:
+            try:
+                self.prescreen = Prescreen(fs, specs, bw_table, LPFM_BW,
+                                           taps, device=self.device)
+            except ValueError:      # a class too wide for fs/2
+                self.prescreen = None
+            if prescreen_margin is None:
+                prescreen_margin = MARGIN
+        self.prescreen_margin = float(prescreen_margin
+                                      if prescreen_margin is not None
+                                      else 0.55)
 
         def on(a):
             return torch.from_numpy(np.asarray(a, np.float32)).to(
@@ -116,14 +136,33 @@ class SondeDetector:
         Returns a list of Detection for 1-D input, else a list per
         channel.  Frequency offsets are in Hz (df = fs*dc/(2*FM_GAIN),
         the discriminator's normalization, demod/mod/demod_mod.c:298).
-        ``prescreen=True`` (the half-rate reject) is not ported."""
-        if prescreen:
-            raise NotImplementedError(TODO_PRESCREEN)
+
+        ``prescreen``: None = auto (the half-rate reject when built and
+        the batch holds 8 or more channels); True/False forces.  Only
+        the channels the prescreen keeps get the full-rate pass, and
+        their detections are the full pass's; a rejected channel gets
+        [].  The survivors go through as they are (the reference pads
+        their batch to a power of two for its compile cache; each
+        channel's full pass does not depend on the batch)."""
         single = (iq.dim() if isinstance(iq, torch.Tensor)
                   else np.ndim(iq)) == 1
         x = iq_planes(iq, self.device)
         if dc_block:
             x = x - torch.mean(x, dim=-1, keepdim=True) * 0.98
+        C = x.shape[0]
+        use_pre = self.prescreen is not None and \
+            (prescreen if prescreen is not None else C >= 8)
+        if use_pre:
+            ratio = self.prescreen.scores(x).cpu().numpy()
+            surv = np.flatnonzero(ratio >= self.prescreen_margin)
+            merged = [[] for _ in range(C)]
+            if surv.size:
+                sub = self._detect_full(
+                    x.index_select(0, torch.from_numpy(surv).to(x.device)),
+                    max_det)
+                for i, c in enumerate(surv):
+                    merged[int(c)] = sub[i]
+            return merged[0] if single else merged
         merged = self._detect_full(x, max_det)
         return merged[0] if single else merged
 
@@ -137,7 +176,7 @@ class SondeDetector:
             dets = detect_types(fm, bank, lens, cls_specs,
                                 fm_gain_hz=self.fs / (2.0 * FM_GAIN),
                                 max_det=0, fs=self.fs,
-                                wideband=self.fs > 50000)
+                                wideband=self.lband or self.fs > 50000)
             for c in range(C):
                 merged[c].extend(dets[c])
         for c in range(C):

@@ -6,6 +6,10 @@ from radiosonde_auto_rx_tpu_torch.ops.fir import (
     decimate, design_lowpass, fir_filter, fir_filter_streaming)
 from radiosonde_auto_rx_tpu_torch.ops.fm import (
     dc_offset, fm_discriminate, iq_dc_removal)
+from radiosonde_auto_rx_tpu_torch.ops.mixer import freq_shift, nco_phase
+from radiosonde_auto_rx_tpu_torch.ops.windows import (
+    hann_periodic, hann_symmetric)
 
 __all__ = ["decimate", "design_lowpass", "fir_filter", "fir_filter_streaming",
-           "dc_offset", "fm_discriminate", "iq_dc_removal"]
+           "dc_offset", "fm_discriminate", "iq_dc_removal", "freq_shift",
+           "nco_phase", "hann_periodic", "hann_symmetric"]

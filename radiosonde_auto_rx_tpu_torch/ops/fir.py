@@ -3,8 +3,8 @@
 Port of ``radiosonde_auto_rx_tpu/ops/fir.py``: ``design_lowpass`` and
 ``design_lowpass_for_transition`` (host NumPy, copied), the
 'same'-length, group-delay-aligned filters ``fir_filter`` and
-``fir_filter_block`` (the detector's conditioning and the iMet AFSK
-front end), the causal ``fir_filter_streaming`` (a carried tail of
+``fir_filter_block`` (the detector's conditioning, the prescreen's
+stride-2 IF bank and the iMet AFSK front end), the causal ``fir_filter_streaming`` (a carried tail of
 K - 1 samples) and the filter + M:1 ``decimate``.  The last two take
 complex input too (two real planes).
 
@@ -12,9 +12,10 @@ Every filter is ``torch.nn.functional.conv1d`` (a cross-correlation,
 so the taps are reversed, as ``lax.conv_general_dilated`` is fed in the
 reference).  On a CUDA tensor conv1d goes through cuDNN, which computes
 float32 convolutions in TF32 (about three decimal digits) unless
-``torch.backends.cudnn.allow_tf32`` is False; ``_fp32_conv`` clears the
-flag for the call and restores it, so the filters are full float32
-whatever the caller set.  The reference's blocked-Toeplitz form of
+``torch.backends.cudnn.allow_tf32`` is False; ``_full_fp32`` clears that
+flag, and cuBLAS's (``torch.backends.cuda.matmul.allow_tf32``, for the
+correlations' matmuls), for the call and restores them, so the filters
+are full float32 whatever the caller set.  The reference's blocked-Toeplitz form of
 ``fir_filter_block`` exists to fill a TPU's matrix unit; here the bank
 is one multi-output convolution with the same result.
 """
@@ -66,20 +67,26 @@ def design_lowpass_for_transition(cutoff_norm: float,
 
 
 @contextmanager
-def _fp32_conv():
-    """cuDNN convolutions in full float32 (no TF32) inside the block."""
-    prev = torch.backends.cudnn.allow_tf32
+def _full_fp32():
+    """cuDNN convolutions and cuBLAS matmuls in full float32 (no TF32)
+    inside the block, whatever the caller set."""
+    prev_conv = torch.backends.cudnn.allow_tf32
+    prev_mm = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        torch.backends.cudnn.allow_tf32 = prev_conv
+        torch.backends.cuda.matmul.allow_tf32 = prev_mm
 
 
-def fir_filter_block(x, hs):
+def fir_filter_block(x, hs, stride: int = 1):
     """Filter [C, T] (or [T]) by a bank ``hs`` [F, K] (or [K]) ->
-    [C, F, T] float32, 'same' length and group-delay aligned:
-    y[c, f, t] = sum_k h[f, k] x[c, t + (K-1)//2 - k] (zeros outside)."""
+    [C, F, T'] float32, group-delay aligned:
+    y[c, f, i] = sum_k h[f, k] x[c, i*stride + (K-1)//2 - k] (zeros
+    outside), the 'same'-length filter's every ``stride``-th sample
+    (T' = ceil(T/stride)); the decimation is the convolution's stride."""
     squeeze = x.dim() == 1
     if squeeze:
         x = x[None, :]
@@ -89,8 +96,8 @@ def fir_filter_block(x, hs):
     K = hs.shape[-1]
     d = (K - 1) // 2
     xp = F.pad(x.float()[:, None, :], (d, K - 1 - d))
-    with _fp32_conv():
-        y = F.conv1d(xp, hs.flip(-1)[:, None, :])
+    with _full_fp32():
+        y = F.conv1d(xp, hs.flip(-1)[:, None, :], stride=int(stride))
     return y[0] if squeeze else y
 
 
@@ -109,7 +116,7 @@ def _taps_on(h, x):
 def _conv_valid(x, h):
     """'valid' convolution of real [C, T] with taps [K] -> [C, T-K+1]:
     y[t] = sum_k h[k] x[t + K-1 - k]."""
-    with _fp32_conv():
+    with _full_fp32():
         return F.conv1d(x.float()[:, None, :], _taps_on(h, x))[:, 0, :]
 
 
@@ -150,7 +157,7 @@ def decimate(x, factor: int, h: np.ndarray | None = None):
     def strided(v):
         d = (K - 1) // 2
         vp = F.pad(v.float()[:, None, :], (d, K - 1 - d))
-        with _fp32_conv():
+        with _full_fp32():
             return F.conv1d(vp, _taps_on(h, v), stride=factor)[:, 0, :]
 
     y = _complex_planes(strided, x)

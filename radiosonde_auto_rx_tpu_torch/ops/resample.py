@@ -90,12 +90,26 @@ def _resample(x, l_up: int, m_down: int, taps_per_phase: int):
     return y[..., :n_out]
 
 
+def resample(x, fs_in: float, fs_out: float, taps_per_phase: int = 16,
+             max_den: int = 5000):
+    """Resample a [..., T] float or complex tensor along its last axis,
+    on its device -> [..., floor((T-taps)*L/M)] samples at ``fs_out``
+    (complex input: each of its real and imaginary parts through the
+    same real weights, as the reference's complex matmul).  Identity
+    ratios pass through untouched."""
+    l_up, m_down = rational_ratio(fs_in, fs_out, max_den)
+    if l_up == m_down:
+        return x
+    if x.is_complex():
+        return torch.complex(
+            _resample(x.real.float(), l_up, m_down, taps_per_phase),
+            _resample(x.imag.float(), l_up, m_down, taps_per_phase))
+    return _resample(x.float(), l_up, m_down, taps_per_phase)
+
+
 def resample_planes(x, fs_in: float, fs_out: float,
                     taps_per_phase: int = 16, max_den: int = 5000):
     """[C, 2, T] or [2, T] float32 planes (a tensor) -> planes at
     ``fs_out``, [..., floor((T-taps)*L/M)] samples.  Identity ratios pass
     through untouched."""
-    l_up, m_down = rational_ratio(fs_in, fs_out, max_den)
-    if l_up == m_down:
-        return x
-    return _resample(x.float(), l_up, m_down, taps_per_phase)
+    return resample(x, fs_in, fs_out, taps_per_phase, max_den)

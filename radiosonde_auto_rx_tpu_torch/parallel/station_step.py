@@ -2,14 +2,15 @@
 
 Port of the single-device parts of
 ``radiosonde_auto_rx_tpu/parallel/station_step.py::ShardedStationStep``:
-``analyze`` (channelize + sparse Welch PSD, the ``n_t == 1`` branch) and
-the fused ``steady_step`` (analyze + recentered extraction of off-grid
-task rows + per-type demod of the active channels, the iMet AFSK chains
-on their FM audio), and the full-rate
-confirmation of scan candidates (``confirm`` on the device, then the
-host decision loop ``decide_confirmed``).  There is no mesh:
-multi-device sharding, the prescreen (``screen=True``) and
-``route_demod`` are not ported yet.
+``analyze`` (channelize + sparse Welch PSD, the ``n_t == 1`` branch,
+and with ``screen=True`` the half-rate prescreen's template ratios of
+every channel), ``expert_assignment`` (the host's threshold-only
+routing from those ratios), the fused ``steady_step`` (analyze +
+recentered extraction of off-grid task rows + per-type demod of the
+active channels, the iMet AFSK chains on their FM audio), and the
+full-rate confirmation of scan candidates (``confirm`` on the device,
+then the host decision loop ``decide_confirmed``).  There is no mesh:
+multi-device sharding and ``route_demod`` are not ported yet.
 """
 
 import numpy as np
@@ -19,8 +20,10 @@ from radiosonde_auto_rx_tpu_torch.demod.fsk import fsk_demod_stream
 from radiosonde_auto_rx_tpu_torch.detect.correlator import (
     _correlate_peaks_exact, decide_from_peaks)
 from radiosonde_auto_rx_tpu_torch.detect.psd import _welch
+from radiosonde_auto_rx_tpu_torch.detect.prescreen import Prescreen
 from radiosonde_auto_rx_tpu_torch.detect.scanner import (
-    TODO_PRESCREEN, SondeDetector)
+    LPFM_BW, LPIQ_BW, SondeDetector)
+from radiosonde_auto_rx_tpu_torch.detect.templates import TEMPLATES
 from radiosonde_auto_rx_tpu_torch.models.imet4 import afsk_fm_audio
 from radiosonde_auto_rx_tpu_torch.ops.channelizer import (
     _channelize, _extract, pfb_prototype)
@@ -28,6 +31,20 @@ from radiosonde_auto_rx_tpu_torch.ops.fm import FM_GAIN
 from radiosonde_auto_rx_tpu_torch.ops.resample import resample_planes
 from radiosonde_auto_rx_tpu_torch.station.chains import (
     CHAIN_TABLE, demod_chain)
+
+
+# expert (demod chain) types of the routed step: the 48 kHz chains
+EXPERT_TYPES = ("RS41", "RS92", "DFM", "M10", "M20", "LMS6",
+                "IMET5", "MEISEI", "MRZ", "MTS01", "IMET4", "RD94RD41")
+
+# detector template name -> expert type.  The M10 template nominates the
+# M10 expert by default (the reference's frm_M10 falls back to M10); the
+# confirmation pass resolves M10-vs-M20 and the iMet subtypes, so these
+# defaults only matter for threshold-only routing.  Templates absent
+# here (wideband chains) fall back to the host path.
+TEMPLATE_TO_EXPERT = {t: t for t in EXPERT_TYPES
+                      if t not in ("M20", "IMET4")}
+TEMPLATE_TO_EXPERT["IMETafsk"] = "IMET4"
 
 
 class StationStep:
@@ -41,9 +58,18 @@ class StationStep:
         self.fs_ch = int(fs_ch)
         self.nfft = int(nfft)
         self.conf_cap = int(conf_capacity)
-        # full-rate confirmation machinery (its own prescreen is not
-        # ported; the station confirms scan candidates exactly)
-        self.detector = SondeDetector(self.fs_ch, device=self.device)
+        self.prescreen = Prescreen(self.fs_ch, TEMPLATES, LPIQ_BW, LPFM_BW,
+                                   device=self.device)
+        # full-rate confirmation machinery; its own prescreen is off
+        # (analyze screens, and the station confirms scan candidates
+        # exactly)
+        self.detector = SondeDetector(self.fs_ch, prescreen=False,
+                                      device=self.device)
+        # template index (prescreen.spec_order) -> expert index or -1
+        self.template_expert = np.array(
+            [EXPERT_TYPES.index(TEMPLATE_TO_EXPERT[s.name])
+             if s.name in TEMPLATE_TO_EXPERT else -1
+             for s in self.prescreen.spec_order], np.int32)
         self.taps = torch.from_numpy(pfb_prototype(self.n_chan)).to(
             self.device)
         self.pfb_p = int(self.taps.shape[0]) // self.n_chan
@@ -56,15 +82,34 @@ class StationStep:
         ch = _channelize(wide, self.taps, self.n_chan)        # [B, N, 2, M]
         return ch.reshape(B * self.n_chan, 2, T // self.n_chan)
 
-    def analyze(self, wide, screen: bool = False):
+    def analyze(self, wide, screen: bool = True):
         """wide [B, 2, T] f32 planes -> (channels [B*N, 2, T//N],
-        psd [B, nfft] (sparse Welch, one nfft window per 4*nfft), None).
-        The prescreen bank (``screen=True``) is not ported."""
-        if screen:
-            raise NotImplementedError(TODO_PRESCREEN)
+        psd [B, nfft] (sparse Welch, one nfft window per 4*nfft),
+        ratios).  ``screen=True`` also runs the half-rate prescreen over
+        every DC-blocked channel: ratios [B*N, K_total] in
+        ``prescreen.spec_order``; else None.  The station's steady path
+        passes ``screen=False``: its candidates come from the PSD scan
+        and go straight to the exact ``confirm``."""
         chf = self._channels(wide)
         psd = _welch(wide, self.nfft, hop=4 * self.nfft)
-        return chf, psd, None
+        if not screen:
+            return chf, psd, None
+        dc = torch.mean(chf, dim=-1, keepdim=True) * 0.98
+        return chf, psd, self.prescreen.template_ratios(chf - dc)
+
+    def expert_assignment(self, ratios, margin: float = 1.0):
+        """Host policy: per-channel expert id from template ratios.
+
+        ratios: [C, K] (host numpy).  Returns (expert_ids [C] int32 with
+        -1 = no expert, best_template [C] int32).  An approximate
+        routing only: the ratios are half-rate prescreen scores, and
+        lookalikes (M20-vs-M10, iMet subtypes) are undisambiguated; the
+        station routes ``confirm`` + ``decide_confirmed``'s decisions."""
+        r = np.asarray(ratios)
+        best = r.argmax(axis=1)
+        ok = r.max(axis=1) >= margin
+        exp = np.where(ok, self.template_expert[best], -1).astype(np.int32)
+        return exp, best.astype(np.int32)
 
     def _chain_for(self, name: str):
         """(cfg, resample_to, afsk) demod chain for a type — identical
@@ -90,7 +135,7 @@ class StationStep:
         returns ``psd=None``.  Returns (chf, psd, {type: (soft, bits,
         stats)})."""
         if scan:
-            chf, psd, _ = self.analyze(wide)
+            chf, psd, _ = self.analyze(wide, screen=False)
         else:
             chf, psd = self._channels(wide), None
         rows = np.asarray(rows)

@@ -72,7 +72,9 @@ CHAIN_TABLE = {
     "WXRPN9": dict(rs=5000, est=55000, mask=50000, wide_fs=96000,
                    resample_to=100000),
     "RD94RD41": dict(rs=4800, est=20000),   # ref decode.py:995
-    # L-band chains on 240 kHz channels (not ported yet)
+    # L-band chains on 240 kHz channels (the station's wide profile above
+    # 1 GHz): MK2LMS resampled 601/600 so Ts = 25; RS92-NGP's wider
+    # deviation (~20 kHz tone spacing)
     "MK2LMS": dict(rs=9616, est=110000, mask=100000, resample_to=240400),
     "RS92NGP": dict(rs=4800, est=32000, mask=20000, wide_fs=240000),
 }
@@ -97,7 +99,6 @@ def demod_chain(name: str, fs_ch: int):
 
 
 # ROADMAP.md items that port what the slices so far leave out
-TODO_LBAND = "L-band captures (ROADMAP.md queue 1: L-band)"
 TODO_POOL = "the frame-plane worker pool (ROADMAP.md queue 1: " \
     "frame-plane pool)"
 TODO_SPLIT = "the split analyze/confirm/route dispatch (ROADMAP.md " \

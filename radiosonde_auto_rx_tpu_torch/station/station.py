@@ -1,14 +1,23 @@
-"""The station's steady path: wideband IQ blocks in, telemetry out.
+"""The station: wideband IQ blocks in, telemetry out.
 
-Port of the fused steady block of
-``radiosonde_auto_rx_tpu/station/station.py::Station`` on one device:
-``start_manual_decoder`` registers a task, ``process_captures`` runs
-``captures_dispatch`` (one ``StationStep.steady_step`` per batch:
-channelize + PSD + recentering + per-type demod, speculated from the
-current task state) and ``captures_collect`` (the host scan and task
-policy, the full-rate confirmation of new scan candidates, which starts
-a task for each detected sonde, the speculation check, and frame
-decoding into telemetry).
+Port of ``radiosonde_auto_rx_tpu/station/station.py::Station`` on one
+device.  ``start_manual_decoder`` registers a task; ``process_captures``
+runs ``captures_dispatch`` and ``captures_collect`` over a batch of
+blocks by one of two routes, as in the reference:
+
+- the fused steady block (a narrow capture with ``use_mesh`` on, the
+  reference's one-device mesh): one ``StationStep.steady_step`` per
+  batch (channelize + PSD + recentering + per-type demod, speculated
+  from the current task state), then the host scan and task policy, the
+  full-rate confirmation of new scan candidates, which starts a task for
+  each detected sonde, the speculation check, and frame decoding into
+  telemetry;
+- the sequential route (``use_mesh: false``, or any capture centered at
+  or above 1 GHz, the L-band profile of 240 kHz channels):
+  ``process_capture`` block by block — PSD scan, row allocation,
+  channelizer and recentered rows, the profile's detector on the
+  candidate rows (its half-rate prescreen at 8 or more candidates),
+  then per-type demod and decode (``decode_channels``).
 
 The collect also runs the single-channel paths: a second sonde inside
 a channel whose row is taken (``_process_collision``: its own row
@@ -22,8 +31,8 @@ The scan/task policy is a copy of the reference's, with the same
 semantics; the frame decoders, telemetry filter and config are the
 port's copies of the reference's host modules.  Paths not ported yet
 raise ``NotImplementedError`` naming the ROADMAP.md item that ports
-them: L-band captures, the split dispatch and the frame-plane worker
-pool (the frame plane runs inline, ``frame_plane_workers=0``).
+them: the split dispatch and the frame-plane worker pool (the frame
+plane runs inline, ``frame_plane_workers=0``).
 """
 
 import dataclasses
@@ -34,20 +43,21 @@ import numpy as np
 import torch
 
 from radiosonde_auto_rx_tpu_torch.demod.fsk import fsk_demod_stream
-from radiosonde_auto_rx_tpu_torch.detect.psd import scan_peaks
+from radiosonde_auto_rx_tpu_torch.detect.psd import power_spectrum, scan_peaks
 from radiosonde_auto_rx_tpu_torch.detect.scanner import SondeDetector
-from radiosonde_auto_rx_tpu_torch.detect.templates import TEMPLATES
+from radiosonde_auto_rx_tpu_torch.detect.templates import (
+    TEMPLATES, WIDEBAND_TEMPLATES)
 from radiosonde_auto_rx_tpu_torch.models import get_model
 from radiosonde_auto_rx_tpu_torch.models.imet4 import afsk_fm_audio
 from radiosonde_auto_rx_tpu_torch.ops.channelizer import (
-    channel_freqs, extract_channels, extract_phases, pfb_prototype)
+    channel_freqs, channelize, extract_channels, extract_phases,
+    pfb_prototype)
 from radiosonde_auto_rx_tpu_torch.ops.resample import resample_planes
 from radiosonde_auto_rx_tpu_torch.parallel.station_step import StationStep
 from radiosonde_auto_rx_tpu_torch.station import gps_ephem
 from radiosonde_auto_rx_tpu_torch.station.chains import (
-    CHAIN_TABLE, DRIFT_MIN_HZ, MODEL_NAME, RECENTER_MIN_HZ, TODO_LBAND,
-    TODO_POOL, TODO_SPLIT, WIDE_SCAN_FS, WIDE_SCAN_WIN_HZ, WIDE_WIDTH_HZ,
-    demod_chain)
+    CHAIN_TABLE, DRIFT_MIN_HZ, MODEL_NAME, RECENTER_MIN_HZ, TODO_POOL,
+    TODO_SPLIT, WIDE_SCAN_FS, WIDE_SCAN_WIN_HZ, WIDE_WIDTH_HZ, demod_chain)
 from radiosonde_auto_rx_tpu_torch.station.config import default_config
 from radiosonde_auto_rx_tpu_torch.station.frame_plane import FramePlane
 from radiosonde_auto_rx_tpu_torch.station.telemetry import (
@@ -61,13 +71,31 @@ def _np(t):
 
 
 class _BandProfile:
-    """Channelizer geometry of the narrow (48 kHz channel) profile."""
+    """Channelizer + detector geometry for one capture configuration.
 
-    def __init__(self, n_chan: int, fs_wide: int):
+    The narrow profile carves the capture into 48 kHz sonde channels;
+    the wide profile (above 1 GHz, reference scan.py:488-547 1680 MHz
+    mode) uses few wide channels for MK2LMS/RS92-NGP, with the L-band
+    detector (``WIDEBAND_TEMPLATES``, ``LPIQ_BW_LBAND``, no prescreen).
+    The detector is built on first use."""
+
+    def __init__(self, n_chan: int, fs_wide: int, device,
+                 wide: bool = False):
         self.n_chan = n_chan
         self.fs_ch = fs_wide // n_chan
         self.freqs = channel_freqs(n_chan, fs_wide)
         self.pfb_taps = pfb_prototype(n_chan)
+        self.wide = wide
+        self._device = device
+        self._detector = None
+
+    @property
+    def detector(self) -> SondeDetector:
+        if self._detector is None:
+            self._detector = SondeDetector(
+                self.fs_ch, specs=WIDEBAND_TEMPLATES if self.wide else None,
+                lband=self.wide, device=self._device)
+        return self._detector
 
 
 class Station:
@@ -88,7 +116,8 @@ class Station:
         self.center_freq = center_freq_hz
         self.fs_wide = int(self.config["capture_rate"])
         self.n_chan = int(self.config["num_channels"])
-        self._narrow = _BandProfile(self.n_chan, self.fs_wide)
+        self._narrow = _BandProfile(self.n_chan, self.fs_wide, self.device)
+        self._wide = None            # built on the first >1 GHz capture
         self._steps = {}             # (n_chan, fs_ch) -> StationStep
         self.rt_filter = RealtimeVelocityFilter(self.config["max_velocity"])
         self.frame_plane = FramePlane(0)
@@ -117,16 +146,35 @@ class Station:
     # ------------------------------------------------------------------ #
 
     def profile(self, center_freq_hz: float | None = None) -> _BandProfile:
-        """Channel geometry for a capture centered here (narrow below
-        1 GHz; the L-band profile is not ported)."""
+        """Channel geometry for a capture centered here: wide channels
+        above 1 GHz (1680 MHz band; ``num_channels_wide`` of them, else
+        one per 240 kHz), narrow below."""
         c = self.center_freq if center_freq_hz is None else center_freq_hz
-        if c >= 1e9:
-            raise NotImplementedError(TODO_LBAND)
-        return self._narrow
+        if c < 1e9:
+            return self._narrow
+        if self._wide is None:
+            n_wide = int(self.config.get("num_channels_wide", 0)) or \
+                max(1, self.fs_wide // 240000)
+            self._wide = _BandProfile(n_wide, self.fs_wide, self.device,
+                                      wide=True)
+        return self._wide
 
+    # geometry of the current center's profile
     @property
     def fs_ch(self):
         return self.profile().fs_ch
+
+    @property
+    def freqs(self):
+        return self.profile().freqs
+
+    @property
+    def pfb_taps(self):
+        return self.profile().pfb_taps
+
+    @property
+    def detector(self) -> SondeDetector:
+        return self.profile().detector
 
     def channel_of_freq(self, freq_hz: float) -> int:
         prof = self.profile()
@@ -192,12 +240,25 @@ class Station:
         off = f_abs - self._chan_center(ci)
         return (ci, 0.0 if abs(off) < snap_hz else float(off))
 
-    def scan_from_psd(self, psd) -> list:
+    def scan(self, wideband_iq) -> list:
+        """PSD scan -> candidate (channel, offset_hz) pairs in the
+        current capture: the sparse Welch PSD (one 2048-point segment
+        per 8192 samples, K2 on a card), then ``scan_from_psd``.  With
+        ``only_scan`` set, no PSD is taken."""
+        if self.config["only_scan"]:
+            return self.scan_from_psd(None)
+        planes = self._wide_planes(wideband_iq)
+        _, psd = power_spectrum(planes[None], self.device, nfft=2048,
+                                fs=self.fs_wide, hop=8192)
+        return self.scan_from_psd(psd[0], db=True)
+
+    def scan_from_psd(self, psd, db: bool = False) -> list:
         """Candidates (channel, offset) from a wideband PSD row (raw
-        ``_welch`` power): peaks above the median floor, quantized to the
-        absolute 10 kHz raster, refined to the local spectral centroid,
-        collapsed within decoder spacing.  Wideband candidates are
-        flagged in ``self._wide_freqs``."""
+        ``_welch`` power, or dB with ``db=True``): peaks above the
+        median floor, quantized to the absolute 10 kHz raster, refined
+        to the local spectral centroid, collapsed within decoder
+        spacing.  Wideband candidates are flagged in
+        ``self._wide_freqs``."""
         self._wide_freqs = set()
         if self.config["only_scan"]:
             cands = [self._cand_of_freq(f * 1e6)
@@ -205,7 +266,8 @@ class Station:
                      if self.in_capture(f * 1e6)]
             return self._scan_tail(cands)
         q = float(self.config["quantization"]) or 10e3
-        psd_db = 10.0 * np.log10(np.maximum(np.asarray(psd), 1e-20))
+        psd = np.asarray(psd)
+        psd_db = psd if db else 10.0 * np.log10(np.maximum(psd, 1e-20))
         nfft = psd_db.shape[-1]
         pfreqs = (np.arange(nfft) - nfft // 2) * (self.fs_wide / nfft)
         peaks, nf = scan_peaks(
@@ -237,6 +299,7 @@ class Station:
                     np.sqrt(max(var, 0.0)) * bin_hz)
 
         can_wide = (bool(self.config.get("wideband_sondes", False)) and
+                    not self.profile().wide and
                     self.fs_wide % WIDE_SCAN_FS == 0)
         refined = []                 # (strength_db, f_abs, is_wide)
         for f in fq_abs:
@@ -345,20 +408,166 @@ class Station:
                                                   conf_default)))
         return self._steps[key]
 
+    def process_capture(self, wideband_iq, center_freq_hz=None) -> list:
+        """One full sequential cycle: scan -> detect -> demod -> decode
+        -> export.
+
+        ``center_freq_hz`` retunes the station for this block (band-plan
+        hopping; task state is frequency-keyed so decoders persist across
+        hops).  Returns the accepted telemetry dicts."""
+        if center_freq_hz is not None:
+            self.center_freq = float(center_freq_hz)
+        prof = self.profile()
+        n_chan = prof.n_chan
+        planes = self._wide_planes(wideband_iq)
+        self._cur_wide = planes
+        self._offsets = {}
+        self._ext_off = {}
+        cands = self.scan(planes) if self.scan_enabled else []
+        # row allocation: each task/candidate frequency gets one row of
+        # the channel bank.  On-grid rows are PFB channels; off-grid
+        # rows are recentered extractions scattered over (or, when two
+        # sondes share a channel, appended after) the PFB rows.
+        rec = {}                     # row < n_chan -> extraction f_rel
+        extra = []                   # appended rows' extraction f_rel
+        row_alloc = {}               # row -> f_abs
+
+        def _alloc(f_abs: float) -> int:
+            ci = self.channel_of_freq(f_abs)
+            off = f_abs - self._chan_center(ci)
+            if ci not in row_alloc:
+                row = ci
+                if abs(off) >= RECENTER_MIN_HZ:
+                    rec[row] = float(prof.freqs[ci]) + off
+                    self._ext_off[row] = float(off)
+            elif abs(row_alloc[ci] - f_abs) < 1.0:
+                return ci
+            else:
+                # a second task inside one channel: its own recentered
+                # row, appended after the PFB rows, EXTRACTED at f_abs
+                # (the drift-retune anchor)
+                row = n_chan + len(extra)
+                extra.append(float(prof.freqs[ci]) + off)
+                self._ext_off[row] = float(f_abs)
+            row_alloc[row] = float(f_abs)
+            self._offsets[row] = f_abs - (
+                self._chan_center(row) if row < n_chan else 0.0)
+            return row
+
+        # manual tasks + known-active sondes within this capture
+        # re-decode every visit without needing a fresh detection
+        forced = {}                  # row -> type name
+        for fz, name in self.manual_tasks.items():
+            if self.in_capture(fz):
+                forced[_alloc(fz)] = name
+        for fz, st in self.active.items():
+            if self.in_capture(fz):
+                forced.setdefault(_alloc(fz), st["type"])
+        cand_rows = []
+        wide_cands = []
+        for ci, off in cands:
+            fq = self._chan_center(ci) + off
+            if int(round(fq)) in self._wide_freqs:
+                wide_cands.append(fq)
+                continue
+            row = _alloc(fq)
+            if row not in forced:
+                cand_rows.append(row)
+        ch = channelize(planes, n_chan, self.device, prof.pfb_taps)
+        ch = self._apply_recenter(ch, planes, prof, rec, extra)
+        n_rows = n_chan + len(extra)
+        tasks = [(row, name, None) for row, name in forced.items()]
+        if cand_rows:
+            # the profile's detector: its prescreen rejects empty rows
+            # first when there are 8 or more candidates
+            detections = prof.detector.detect(ch.index_select(
+                0, torch.tensor(cand_rows, device=ch.device)))
+            for row, dets in zip(cand_rows, detections):
+                if not dets:
+                    continue
+                det = dets[0]
+                self.stats["detections"] += 1
+                name = det.name
+                if prof.wide and name == "RS92":
+                    # an RS92 header at 1680 MHz is an RS92-NGP
+                    # (reference decode.py:948 starts rs92mod --ngp)
+                    name = "RS92NGP"
+                if name in CHAIN_TABLE or name in MODEL_NAME:
+                    # the detector's FM-DC offset estimate refines the
+                    # task frequency when the scan center was materially
+                    # off; the demod's f_est feedback trims the rest
+                    if det.freq_offset and \
+                            RECENTER_MIN_HZ <= abs(det.freq_offset) <= 5e3:
+                        self._offsets[row] = self._offsets.get(row, 0.0) \
+                            + float(det.freq_offset)
+                    tasks.append((row, name, det))
+        tasks = self._dedupe_tasks(tasks)
+        # one batched demod call per type
+        telemetry_out = []
+        for name, items in self.group_tasks_by_type(tasks, n_rows).items():
+            telemetry_out.extend(self.decode_channels(ch, items, name))
+        # wideband candidates (Weathex): 96 kHz wide-scan detect + decode
+        # from the retained wideband block
+        for fq in wide_cands:
+            telemetry_out.extend(
+                self._process_wide_candidate(prof, planes, fq))
+        return telemetry_out
+
+    def _dedupe_tasks(self, tasks: list) -> list:
+        """Spacing rule over a block's freshly detected tasks: a
+        detection within ``decoder_spacing_limit`` of an existing
+        (forced) task or of a stronger detection is the same sonde (the
+        reference's sequential handle_scan_results check,
+        auto_rx.py:304-419)."""
+        spacing = float(self.config.get("decoder_spacing_limit", 15e3))
+        order = sorted(tasks, key=lambda t: (
+            t[2] is not None, -(t[2].score if t[2] is not None else 0.0)))
+        kept, out = [], []
+        for row, name, det in order:
+            fz = self.freq_of_channel(row)
+            if det is not None and any(abs(fz - g) < spacing
+                                       for g in kept):
+                continue
+            kept.append(fz)
+            out.append((row, name, det))
+        return out
+
+    def _apply_recenter(self, ch, planes, prof, rec: dict, extra: list):
+        """Recenter off-grid rows from the wideband block: one
+        ``extract_channels`` call covers the scattered replacements
+        (``rec``: row -> f_rel) and the appended rows (``extra``: f_rel
+        each).  Unlike the reference (which pads the slots to a power of
+        two for its compile cache), only real rows are extracted."""
+        if not rec and not extra:
+            return ch
+        f_list = [f for _, f in sorted(rec.items())] + list(extra)
+        ext = extract_channels(planes, self.fs_wide, f_list, prof.n_chan,
+                               self.device, prof.pfb_taps)
+        if rec:
+            rows = torch.tensor(sorted(rec), device=ch.device)
+            ch = ch.index_copy(0, rows, ext[:len(rec)])
+        if extra:
+            ch = torch.cat([ch, ext[len(rec):]])
+        return ch
+
     def process_captures(self, blocks, centers=None) -> list:
-        """B wideband blocks through one fused steady step, then the
+        """B wideband blocks through one fused steady step (or, on the
+        sequential route, ``process_capture`` block by block), then the
         host policy and frame decode.  Returns the accepted telemetry."""
         return self.captures_collect(self.captures_dispatch(blocks,
                                                             centers))
 
     def captures_dispatch(self, blocks, centers=None):
         """Queue the device work of a block batch (pair with
-        ``captures_collect``)."""
+        ``captures_collect``).  With ``use_mesh`` off, or any capture
+        centered at or above 1 GHz, the batch takes the sequential route
+        (``process_capture`` per block, run by the collect)."""
         if centers is None:
             centers = [self.center_freq] * len(blocks)
         centers = [float(c) for c in centers]
-        for c in centers:
-            self.profile(c)          # raises for L-band captures
+        if not bool(self.config.get("use_mesh", True)) or any(
+                self.profile(c).wide for c in centers):
+            return ("seq", list(blocks), centers)
         if not bool(self.config.get("fused_steady_step", True)):
             raise NotImplementedError(TODO_SPLIT)
         prof = self.profile(centers[0])
@@ -434,7 +643,14 @@ class Station:
 
     def captures_collect(self, pending) -> list:
         """Finish a ``captures_dispatch`` batch: host scan/task policy,
-        speculation check, host frame decode."""
+        speculation check, host frame decode (or, on the sequential
+        route, ``process_capture`` per block)."""
+        if pending[0] == "seq":
+            _, blocks, centers = pending
+            out = []
+            for b, c in zip(blocks, centers):
+                out.extend(self.process_capture(b, center_freq_hz=c))
+            return out
         _, step, prof, wide, chf, psd, B, centers, steady = pending
         return self._collect_sharded(step, prof, wide, chf, psd, B,
                                      centers, steady)
@@ -695,12 +911,14 @@ class Station:
         det = None
         name = forced_name
         if name is None:
-            dets = self._step(prof).detector.detect(row)[0]
+            dets = prof.detector.detect(row, prescreen=False)[0]
             if not dets:
                 return []
             det = dets[0]
             self.stats["detections"] += 1
             name = det.name
+            if prof.wide and name == "RS92":
+                name = "RS92NGP"
         if name not in CHAIN_TABLE and name not in MODEL_NAME:
             return []
         n_chan = prof.n_chan
@@ -718,7 +936,7 @@ class Station:
             specs = [dataclasses.replace(s, lp_iq=0)
                      for s in TEMPLATES if s.name.startswith("WXR")]
             self._wide_det = SondeDetector(
-                WIDE_SCAN_FS, specs=specs,
+                WIDE_SCAN_FS, specs=specs, prescreen=False,
                 bw_table=(64e3, 64e3, 64e3, 200e3), device=self.device)
         return self._wide_det
 
@@ -738,7 +956,7 @@ class Station:
         f_rel = float(f_abs) - self.center_freq
         row96 = extract_channels(planes, self.fs_wide, [f_rel], n_dec,
                                  self.device, self._wide_taps(n_dec))
-        dets = self._wide_scan_detector().detect(row96)[0]
+        dets = self._wide_scan_detector().detect(row96, prescreen=False)[0]
         if not dets:
             return self._process_collision(prof, planes, f_abs)
         det = dets[0]
@@ -771,14 +989,15 @@ class Station:
         return chf.index_copy(0, rows, ext)
 
     @staticmethod
-    def group_tasks_by_type(tasks, n_chan: int) -> dict:
-        """Group (channel, type, det) tasks into per-type channel lists,
-        types sorted by name and channels ascending (the slot order of
-        the reference's ``parallel/routing.compact_by_type``)."""
+    def group_tasks_by_type(tasks, n_rows: int) -> dict:
+        """Group (row, type, det) tasks into per-type row lists, types
+        sorted by name and rows ascending (the slot order of the
+        reference's ``parallel/routing.compact_by_type``).  ``n_rows``:
+        the channel rows plus any appended past them."""
         groups = {}
         for ci, name, det in sorted(tasks, key=lambda t: t[0]):
-            if not 0 <= ci < n_chan:
-                raise ValueError(f"task row {ci} outside {n_chan} channels")
+            if not 0 <= ci < n_rows:
+                raise ValueError(f"task row {ci} outside {n_rows} rows")
             groups.setdefault(name, []).append((int(ci), det))
         return {name: groups[name] for name in sorted(groups)}
 
@@ -806,6 +1025,16 @@ class Station:
         if lockout_minutes > 0:
             self.temporary_blocks[fz] = time.time() + lockout_minutes * 60
         return fz
+
+    def decode_channel(self, iq_ch, ci: int, name: str, det=None) -> list:
+        """Demod + decode one channel (planes [2, T] or complex [T] at
+        the profile's channel rate) known to carry type ``name``, keyed
+        at channel ``ci``'s center."""
+        self._offsets = {}           # manual API: channel-center task
+        self._ext_off = {}
+        self._cur_wide = None        # no wideband block to extract from
+        return self.decode_channels(self._wide_planes(iq_ch)[None],
+                                    [(0, det)], name, chan_map={0: ci})
 
     def decode_channels(self, ch, items, name: str, chan_map=None,
                         wide_ready: bool = False) -> list:
@@ -928,6 +1157,10 @@ class Station:
     def _decoder_kwargs(self, name, model_name) -> dict:
         """Constructor args for a type's frame decoder."""
         kwargs = {}
+        if name == "RS92NGP":
+            # 1680 MHz RS92-NGP: scrambled cal/PTU + frequency table
+            # offset (reference rs92mod.c --ngp :1803)
+            kwargs["ngp"] = True
         if model_name == "RS92":
             # RS92 needs GPS ephemeris for its raw-pseudorange nav
             eph = self.config.get("rs92_ephemeris")

@@ -68,12 +68,11 @@ def test_k1_matches_twin(dev, name, c):
     assert float(err) <= 1e-5
 
 
-# every FSK chain of the station's narrow profile (the iMet chains' audio
-# demod as "AFSK"; the Weathex chains at their own rates), and an FSK4
-# config
+# every FSK chain of the station (the iMet chains' audio demod as "AFSK";
+# the Weathex and L-band chains at their own rates), and an FSK4 config
 SCAN_CHAINS = sorted({"RS41", "RS92", "DFM", "M10", "M20", "LMS6", "IMET5",
                       "MEISEI", "MRZ", "MTS01", "RD94RD41", "WXR301",
-                      "WXRPN9"}) + ["AFSK", "FSK4"]
+                      "WXRPN9", "RS92NGP", "MK2LMS"}) + ["AFSK", "FSK4"]
 
 
 @pytest.mark.parametrize("c", [1, 2, 16])
@@ -244,6 +243,32 @@ def test_detector_cuda_matches_cpu(dev):
             assert abs(a.score - b.score) <= cs.DET_TOL
 
 
+def test_prescreen_cuda_matches_cpu(dev):
+    """The prescreen's ratios on the card against the CPU's, on the nine
+    candidate rows of phase 9's capture at 16 channels (the three sondes,
+    extracted at their frequencies, and six carriers): within
+    ``chip_smoke.RATIO_TOL`` relative, the same survivors (the sondes)."""
+    import chip_smoke as cs
+    from radiosonde_auto_rx_tpu_torch.detect.prescreen import MARGIN
+    from radiosonde_auto_rx_tpu_torch.ops.channelizer import \
+        extract_channels
+    n, fs = 16, 768_000
+    wide = cs.synth_stream(n, fs, 1, carriers=cs.carriers_for) \
+        .astype(np.float32) / 32768.0
+    freqs = [f for _, _, f, _, _ in cs.sondes_for(n, fs)] + \
+        cs.carriers_for(n, fs)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        rows = extract_channels(wide, fs, freqs, n, d)
+        rows = rows - rows.mean(dim=-1, keepdim=True) * 0.98
+        out.append(SondeDetector(fs // n, device=d).prescreen.scores(rows))
+    got, want = out[0].cpu(), out[1]
+    assert out[0].device == dev
+    assert float(((got - want).abs() / want.abs()).max()) <= cs.RATIO_TOL
+    assert (got >= MARGIN).tolist() == (want >= MARGIN).tolist() == \
+        [True] * 3 + [False] * 6
+
+
 def test_kernels_refuse_bad_input(dev):
     with pytest.raises(ValueError):
         fft.fft(torch.zeros(2, 2, 96, device=dev))
@@ -283,6 +308,36 @@ def test_station_cuda_equals_cpu(dev):
     assert launches["freq_est_sf"] == 0 and launches["fft_abs2"] > 0
     got = sorted(map(cs._key, gpu[0][1]))
     assert got and got == sorted(map(cs._key, cpu[0][1]))
+
+
+def test_sequential_stations_cuda_equal_cpu(dev):
+    """``use_mesh: false`` at 16 channels with phase 9's carriers (nine
+    candidates: the prescreen runs), and an L-band block at 960 kHz: the
+    CUDA stations find and decode what the CPU stations do, one scan
+    launch per demod call."""
+    import chip_smoke as cs
+    n, fs = 16, 768_000
+    stream = cs.synth_stream(n, fs, 2, carriers=cs.carriers_for)
+    runs = [cs.split_blocks(stream, fs, 2)]
+    with cs.DemodCalls() as calls:
+        gpu, launches = cs.drive_station(dev, runs, n, fs, manual=False,
+                                         use_mesh=False)
+    cpu, _ = cs.drive_station(torch.device("cpu"), runs, n, fs,
+                              manual=False, use_mesh=False)
+    assert launches["fsk_scan"] == calls.calls > 0
+    assert launches["freq_est_sf"] == 0 and launches["fft_abs2"] > 0
+    assert gpu[0][0].stats["detections"] == 3
+    assert cs.same_tasks(gpu[0][2][0][0], cpu[0][2][0][0])
+    got = sorted(map(cs._key, gpu[0][1]))
+    assert got and got == sorted(map(cs._key, cpu[0][1]))
+    lb, f_off = cs.lband_stream(960_000, 4, 2)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        st = cs.lband_station(d, 960_000, 4)
+        out.append((sorted(map(cs._lkey, st.process_captures([lb],
+                                                              [cs.LBAND]))),
+                    cs.tasks_of(st)))
+    assert out[0] == out[1] and out[0][0]
 
 
 def test_detecting_station_cuda_equals_cpu(dev):

@@ -137,9 +137,19 @@ def test_corr_fft_matches_direct():
         np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0, atol=5e-5)
 
 
-def test_detector_refuses_prescreen():
-    with pytest.raises(NotImplementedError, match="Prescreen"):
-        SondeDetector(FS, prescreen=True, device="cpu")
+def test_detector_refuses_prescreen(planes):
+    """Once a refusal, now the reference's default: ``SondeDetector``
+    builds the half-rate ``Prescreen`` (as JAX ``test_prescreen_built``),
+    and ``prescreen=True`` on these four channels gives the full pass's
+    decisions, as the reference's does, on every channel the prescreen
+    keeps ([] elsewhere)."""
+    from radiosonde_auto_rx_tpu_torch.detect.prescreen import Prescreen
     det = SondeDetector(FS, device="cpu")
-    with pytest.raises(NotImplementedError, match="Prescreen"):
-        det.detect(np.zeros((1, 2, 4800), np.float32), prescreen=True)
+    assert isinstance(det.prescreen, Prescreen)
+    assert RefDetector(FS).prescreen is not None
+    x = torch.from_numpy(planes)
+    full = det.detect(x, max_det=0, dc_block=False, prescreen=False)
+    got = det.detect(x, max_det=0, dc_block=False, prescreen=True)
+    keep = det.prescreen.scores(x).numpy() >= det.prescreen_margin
+    assert keep.tolist() == [True, True, True, False]
+    assert got == [f if k else [] for f, k in zip(full, keep)]

@@ -175,7 +175,7 @@ def test_state_roundtrip_continues_stream():
 
 
 def test_unbuffered_scan_not_ported():
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="CLI, sources and tools"):
         port.fsk_demod_stream(port.FSKConfig(**RS41),
                               np.zeros((1, 2, 9000), np.float32), CPU,
                               buffered=False)

@@ -17,7 +17,9 @@ chain geometry the station uses (M10's odd n = 745, M20, RS41's mask
 estimator, LMS6's peak estimator, DFM at 50 kHz, MEISEI, MTS01's
 ndft 512, the iMet AFSK audio with P = 8 and a real input, WXR301 at
 96 kHz and WXRPN9 at 100 kHz with the mask comb over the whole ndft 256
-spectrum) and an FSK4 configuration.  Tolerances (``chip_smoke.
+spectrum, the L-band chains RS92NGP at 240 kHz with ndft 512 and one
+window buffer, MK2LMS at 240.4 kHz with ndft 256) and an FSK4
+configuration.  Tolerances (``chip_smoke.
 scan_diff``, what the card is held to): bits, tone estimates, ptr and nin
 equal; soft decisions, spectra and tone magnitudes within 1e-4 of their
 peak; timing to 1e-4; the Eb/N0 bound of ``tests/test_torch_fsk.py``.
@@ -39,7 +41,7 @@ torch.set_num_threads(1)
 CPU = torch.device("cpu")
 SHIM = Path(__file__).parent / "cuda_shim"
 CHAINS = ("M10", "M20", "RS41", "LMS6", "DFM", "MEISEI", "MTS01", "AFSK",
-          "WXR301", "WXRPN9", "FSK4")
+          "WXR301", "WXRPN9", "RS92NGP", "MK2LMS", "FSK4")
 
 
 def _signal(name, c=2, blocks=3, seed=0):
@@ -64,9 +66,11 @@ def scan_host(tmp_path_factory):
     return exe
 
 
-def _run_host(exe, tmp_path, cfg, x, state, nb, probe=False, stages=2):
+def _run_host(exe, tmp_path, cfg, x, state, nb, probe=False, stages=2,
+              smem=None):
     """The kernel source's scan on the CPU; returns (state, outs) as
-    ``fsk_scan`` does."""
+    ``fsk_scan`` does.  ``smem``: a list that gets the bytes of shared
+    memory a block of the kernel takes with these operands."""
     ptrs, ints, floats, result = fsk._scan_operands(cfg, x, state, nb,
                                                     probe)
     blob = [struct.pack("<i", len(ptrs))]
@@ -77,8 +81,11 @@ def _run_host(exe, tmp_path, cfg, x, state, nb, probe=False, stages=2):
              struct.pack(f"<i{len(floats)}f", len(floats), *floats)]
     src, dst = tmp_path / "in.bin", tmp_path / "out.bin"
     src.write_bytes(b"".join(blob))
-    subprocess.run([str(exe), str(src), str(dst), str(stages)], check=True,
-                   capture_output=True, text=True, timeout=300)
+    run = subprocess.run([str(exe), str(src), str(dst), str(stages)],
+                         check=True, capture_output=True, text=True,
+                         timeout=300)
+    if smem is not None:
+        smem.append(4 * int(run.stdout.split(" floats")[0].split()[-1]))
     data, pos = dst.read_bytes(), 0
     for t in ptrs:
         (n,) = struct.unpack_from("<q", data, pos)
@@ -105,7 +112,29 @@ def test_kernel_source_matches_twin(scan_host, tmp_path, name, stages):
     cs.scan_diff(got, want, name)
 
 
-@pytest.mark.parametrize("name", ["RS41", "M10", "DFM", "AFSK", "WXR301"])
+# the H100's shared memory a block may opt in to (cudaDevAttrMaxShared-
+# MemoryPerBlockOptin: 227 KB)
+OPTIN_BYTES = 227 * 1024
+
+
+@pytest.mark.parametrize("name,stages", [("RS92NGP", 1), ("MK2LMS", 2)])
+def test_lband_scan_fits_the_card(scan_host, tmp_path, name, stages):
+    """The L-band geometries' shared memory a block (the kernel's
+    ``scan_map``): the wrapper takes two window buffers where they fit
+    the opt-in, else one.  RS92NGP's window span (nmem 15,100 + 8 ts =
+    15,500 samples a plane) fits only once; MK2LMS's twice."""
+    cfg, x, nb = _signal(name, blocks=1)
+    st0 = fsk.fsk_init_state(cfg, 2, CPU)
+    sizes = []
+    for k in (1, 2):
+        _run_host(scan_host, tmp_path, cfg, x, st0, nb, stages=k,
+                  smem=sizes)
+    fits = [b <= OPTIN_BYTES for b in sizes]
+    assert fits == [True, stages == 2], sizes
+
+
+@pytest.mark.parametrize("name", ["RS41", "M10", "DFM", "AFSK", "WXR301",
+                                  "RS92NGP"])
 def test_kernel_source_carried_state(scan_host, tmp_path, name):
     """From the twin's final state (EMA spectrum, timing, ppm, pointer
     carried), over the same input again."""

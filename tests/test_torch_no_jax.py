@@ -10,7 +10,11 @@ drives them on the card: once with the sondes as manual tasks, once
 with no task, so that the station finds them by itself.  A second child
 drives the remaining paths on phase 8's sondes (an iMet-4, a WXR301
 off grid, two RS41s in one channel; ``wideband_sondes`` on) as two 2 s
-blocks, with and without manual tasks.  They check the telemetry, the
+blocks, with and without manual tasks.  A third drives phase 9's paths
+at a small geometry: the sequential route (``use_mesh: false``, 16
+channels at 768 kHz) over the three sondes and six carriers, where the
+detector's prescreen runs on the nine candidates, and one 2 s L-band
+block at 960 kHz (four 240 kHz channels) with an RS92-NGP.  They check the telemetry, the
 detections, that every frame decoder of the port's registry imported,
 and that no blocked module was loaded.  A static
 check keeps ``import jax`` and imports of the JAX package out of the
@@ -97,6 +101,30 @@ print(json.dumps(out))
 """
 
 
+SEQ_CHILD = BLOCKER + r"""
+n, fs = 16, 768_000
+stream = cs.synth_stream(n, fs, 4, carriers=cs.carriers_for)
+screens = []
+results, launches = cs.drive_station(
+    torch.device("cpu"), [cs.split_blocks(stream, fs, 2)], n, fs, False,
+    setup=cs.record_prescreen(screens), use_mesh=False)
+st, telems, per_block = results[0]
+cs.check_detections(per_block, [(t, cs.CENTER + f)
+                                for t, _, f, _, _ in cs.sondes_for(n, fs)])
+out = dict(seen=cs.check_telemetry(telems, n, fs, ("RS41", "DFM")),
+           launches=launches, detections=st.stats["detections"],
+           screened=[[float(v) for v in r] for _, r in screens])
+lb, f_off = cs.lband_stream(960_000, 4, 2)
+st = cs.lband_station(torch.device("cpu"), 960_000, 4)
+telems = st.process_captures([lb], [cs.LBAND])
+cs.check_lband(telems, cs.tasks_of(st), f_off)
+out["lband"] = [cs._lkey(t) for t in telems]
+out["blocked"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in BLOCKED)
+print(json.dumps(out))
+"""
+
+
 def _child(code):
     res = subprocess.run([sys.executable, "-c", code, str(ROOT)],
                          capture_output=True, text=True, timeout=300,
@@ -137,6 +165,21 @@ def test_remaining_paths_run_without_jax():
                                    "fft": 0, "fsk_scan": 0}
     assert out["True"]["detections"] == 0
     assert out["False"]["detections"] >= 4
+
+
+def test_sequential_and_lband_run_without_jax():
+    from radiosonde_auto_rx_tpu_torch.detect.prescreen import MARGIN
+    out = _child(SEQ_CHILD)
+    assert out["blocked"] == []
+    assert len(out["seen"]) == 3 and all(v > 0 for v in out["seen"].values())
+    assert out["detections"] == 3
+    assert out["launches"] == {"freq_est_sf": 0, "fft_abs2": 0, "fft": 0,
+                               "fsk_scan": 0}
+    # the prescreen ran once, on the first block's nine candidates, and
+    # kept the three sondes
+    assert [len(r) for r in out["screened"]] == [9]
+    assert sum(v >= MARGIN for v in out["screened"][0]) == 3
+    assert out["lband"] and {t[1] for t in out["lband"]} == {"R1234567"}
 
 
 def test_no_jax_import_in_port_sources():

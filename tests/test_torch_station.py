@@ -102,9 +102,9 @@ def test_steady_step_outputs_match(runs):
 
 def test_out_of_slice_paths_raise():
     """A second sonde inside a taken channel goes through the collision
-    path as in the reference; paths not ported yet (L-band captures)
-    raise, naming the ROADMAP item, rather than being silently
-    dropped."""
+    path as in the reference; a block centered at 1680 MHz, once a
+    refusal, now takes the L-band profile's sequential route in both
+    packages with the same outcome; a station needs its device."""
     # a manual task 20 kHz above the RS41, in its channel: the RS41's
     # scan peak is too far from the task to be absorbed by it, so the
     # sonde itself is the second signal in the channel
@@ -124,7 +124,11 @@ def test_out_of_slice_paths_raise():
     telems, tasks, detections = out[0]
     assert detections >= 1 and {k[1] for k in telems} >= {"T1357911"}
     assert ("RS41", int(RS41_F + 20e3)) in tasks
-    with pytest.raises(NotImplementedError, match="L-band"):
-        st.process_captures([_capture(0.0, 0.0, seed=5)], [1680e6])
+    lband = _capture(0.0, 0.0, seed=5)
+    got = [(sorted(map(_key, s.process_captures([lband], [1680e6]))),
+            s.profile(1680e6).fs_ch, s.stats["detections"])
+           for s in (ref, st)]
+    assert got[1] == got[0]
+    assert st.captures_dispatch([lband], [1680e6])[0] == "seq"
     with pytest.raises(TypeError):           # no silent default device
         Station(_cfg())
