@@ -21,7 +21,13 @@ Phases, in order; any failure raises (non-zero exit, traceback):
    whole spectrum) and WXRPN9 (100 kHz) with 1, and the L-band chains of
    phase 9 with 1: RS92NGP (240 kHz, ndft 512, a window span that fits
    shared memory once) and MK2LMS (240.4 kHz, ndft 256), once from the
-   initial state with probe outputs and once from a carried state; K1
+   initial state with probe outputs and once from a carried state; the
+   scan's unbuffered mode (the demod CLI's: each window at
+   ``[ptr - nmem, ptr)``, one window buffer) against
+   ``fsk_scan_ref(buffered=False)`` at RS41, DFM and M10 with 1 channel
+   over the CLI's chunk of 8 demod blocks, from the initial state and
+   from the carried one (its pointer runs past the input: clamped window
+   starts); K1
    alone through its entry point ``ops.fsk_sf.freq_est_sf`` (a thin
    kernel around the same stage; counters zeroed just before, read just
    after) at the shapes the main path gives the stage, then wider
@@ -115,24 +121,51 @@ Phases, in order; any failure raises (non-zero exit, traceback):
    L-band detector, renamed from RS92 and decoded (serial, subtype,
    position); then ``decode_channel`` on a 240 kHz MK2LMS channel; both
    equal to a CPU station's.
+10. The command lines.  (a) Phase 3's capture written as a cs16 file
+   (under ``build/chip_smoke/``) and replayed by ``station.main.
+   run_station`` in this process, as ``python -m
+   radiosonde_auto_rx_tpu_torch --replay`` runs it: 2 s blocks (the
+   default), no task, the frame-plane pool at the reference's default
+   (``frame_plane_workers`` -1), a checkpoint, the per-sonde log
+   exporter and the web server on an ephemeral port (counters zeroed
+   just before, read just after).  Check exit 0, the log rows against
+   the telemetry of the same blocks through ``drive_station`` on the
+   card, one scan launch per demod call, K2 at least once, tickets
+   resolved by worker processes, and the checkpoint's tasks.  Then time
+   the steady 1 s block with manual tasks without the pool and with it,
+   in turns, and check that no pool worker holds a CUDA context: none
+   maps the CUDA driver library (``/proc/<pid>/maps``; this process
+   does), and ``nvidia-smi --query-compute-apps=pid`` lists no more
+   apps with the pool than before it (its PIDs are another namespace's,
+   so only their count is read).  (b) ``python -m
+   radiosonde_auto_rx_tpu_torch --replay ... -f ... -m RS41`` as a child
+   process: exit 0 and the RS41's rows.  (c) ``demod.cli.run`` on 4 s
+   of RS41 test frames (``--testframes --hardout``) on the card and on
+   the CPU: the same bits, one unbuffered scan launch a chunk; its real
+   time factor.
 
 The second-to-last line is a JSON object of per-kernel results (times
 at the main path's shapes, bound, library-call time, the largest error
 of all the checks; launches: the scan's and K2's on the detection path
-(and by phase-8 and phase-9 drive), K1's and K3's in their own phases,
-through their entry points; every kernel also lists each shape timed),
+(and by phase-8, phase-9 and phase-10 drive), the unbuffered scan's in
+phase 10's demod CLI run, K1's and K3's in their own phases, through
+their entry points; every kernel also lists each shape timed),
 the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before printing any
 result.
 """
 
 import datetime
+import io
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -168,6 +201,11 @@ SCAN_SHAPES = (("RS41", 2), ("DFM", 1), ("RS41", 16), ("M20", 4),
                ("MTS01", 4), ("M10", 2), ("FSK4", 2), ("AFSK", 1),
                ("AFSK", 4), ("WXR301", 1), ("WXRPN9", 1), ("RS92NGP", 1),
                ("MK2LMS", 1))
+# the unbuffered mode's phase-2 shapes (the demod CLI runs one channel):
+# RS41 (the mask estimator), DFM at 50 kHz and M10's odd n = 745, each
+# over the CLI's chunk of CLI_CHUNK demod blocks
+UNBUF_SHAPES = (("RS41", 1), ("DFM", 1), ("M10", 1))
+CLI_CHUNK = 8
 FSK4_CFG = dict(fs=48000, rs=2400, m=4, p=5, nsym=100, est_min=-10000,
                 est_max=10000)
 # K3's phase: (N, rows, method, kernel launches expected): one launch up
@@ -653,10 +691,12 @@ def fsk_signal(cfg, channels: int, t_samples: int, seed: int = 0,
     return np.stack([x.real, x.imag], axis=1).astype(np.float32)
 
 
-def scan_bound(cfg, c: int, nb: int):
+def scan_bound(cfg, c: int, nb: int, span: int | None = None):
     """The scan's least work for ``c`` channels of ``nb`` demod blocks:
-    bytes (the input span read once; soft decisions, bits, per-block
-    stats and the state written once) and operations (per block and
+    bytes (the input span read once — the buffered scan's rolling buffer
+    over ``nb`` blocks, or ``span`` samples, the unbuffered scan's input;
+    soft decisions, bits, per-block stats and the state written once)
+    and operations (per block and
     channel: the hops' windowed FFTs, |X| and the weighted sum; the
     downconvert of every window sample for every tone, the coarse
     rotation, the integrate-and-dump, the timing line, the resampling
@@ -666,7 +706,7 @@ def scan_bound(cfg, c: int, nb: int):
     per_block = (nf * (fft_flops(nd) + 2.0 * nd + 5.0 * nd)
                  + m * cfg.nmem * 8.0 + m * nps * 6.0 + m * ni * 2.0 * p
                  + ni * (4.0 * m + 4.0) + m * cfg.nsym * (4.0 * p + 10.0))
-    span = (nb - 1) * cfg.n + cfg.nmem + 8 * cfg.ts
+    span = span or (nb - 1) * cfg.n + cfg.nmem + 8 * cfg.ts
     nbits = nb * cfg.nsym * cfg.bits_per_symbol
     nbytes = (4.0 * c * 2 * span + c * nbits * 5.0 + 4.0 * c * nb * (m + 2)
               + 4.0 * 2 * c * (cfg.ndft + 4))
@@ -712,55 +752,65 @@ def _on_cpu(res):
     return tuple({k: v.cpu() for k, v in d.items()} for d in res)
 
 
-def check_scan(dev, name, cfg, c, seed=0):
+def check_scan(dev, name, cfg, c, seed=0, buffered=True):
     """The scan kernel against its twin on ``c`` channels of 1 s of
     modulated signal with noise: once from the initial state with probe
     outputs, once from the twin's final state (a carried state); against
     the twin run on a CPU copy of the inputs, and (but for
     TWIN_CPU_ONLY) against the twin run on the card.  Then the kernel,
-    its call and the twin timed (probe off)."""
+    its call and the twin timed (probe off).  ``buffered=False``: the
+    unbuffered mode on the demod CLI's chunk (CLI_CHUNK demod blocks;
+    from the carried state the pointer runs past the input, so the
+    window starts are clamped)."""
     import torch
     from radiosonde_auto_rx_tpu_torch.demod import fsk
     cpu = torch.device("cpu")
-    t = cfg.fs
+    t = cfg.fs if buffered else cfg.nmem + CLI_CHUNK * cfg.block_advance_max
     x = torch.from_numpy(fsk_signal(cfg, c, t, seed)).to(dev)
-    nb = fsk.fsk_num_blocks_buffered(cfg, t)
+    nb = fsk.fsk_num_blocks_buffered(cfg, t) if buffered \
+        else fsk.fsk_num_blocks(cfg, t)
     st0 = fsk.fsk_init_state(cfg, c, dev)
+    mode = dict(buffered=buffered)
     want_c = fsk.fsk_scan_ref(cfg, x.cpu(), fsk.fsk_init_state(cfg, c, cpu),
-                              nb, probe=True)
-    err = scan_diff(_on_cpu(fsk.fsk_scan(cfg, x, st0, nb, probe=True)),
+                              nb, probe=True, **mode)
+    err = scan_diff(_on_cpu(fsk.fsk_scan(cfg, x, st0, nb, probe=True,
+                                         **mode)),
                     want_c, f"{name} C={c} (twin on the CPU)")
     st1 = want_c[0]
     err = max(err, scan_diff(
         _on_cpu(fsk.fsk_scan(cfg, x, {k: v.to(dev) for k, v in st1.items()},
-                             nb)),
-        fsk.fsk_scan_ref(cfg, x.cpu(), st1, nb),
+                             nb, **mode)),
+        fsk.fsk_scan_ref(cfg, x.cpu(), st1, nb, **mode),
         f"{name} C={c}, carried state (twin on the CPU)"))
-    want = fsk.fsk_scan_ref(cfg, x, st0, nb, probe=True)
+    want = fsk.fsk_scan_ref(cfg, x, st0, nb, probe=True, **mode)
     if name in TWIN_CPU_ONLY:
         gap = float((want[1]["soft"].cpu() - want_c[1]["soft"]).abs().max())
         print(f"fsk_scan {name} C={c}: the twin on the card against the twin "
               f"on the CPU: soft max_abs_err={gap:.3e} (peak "
               f"{float(want_c[1]['soft'].abs().max()):.3f}; TWIN_CPU_ONLY)")
     else:
-        err = max(err, scan_diff(fsk.fsk_scan(cfg, x, st0, nb, probe=True),
+        err = max(err, scan_diff(fsk.fsk_scan(cfg, x, st0, nb, probe=True,
+                                              **mode),
                                  want, f"{name} C={c}"))
         st1 = want[0]
-        err = max(err, scan_diff(fsk.fsk_scan(cfg, x, st1, nb),
-                                 fsk.fsk_scan_ref(cfg, x, st1, nb),
+        err = max(err, scan_diff(fsk.fsk_scan(cfg, x, st1, nb, **mode),
+                                 fsk.fsk_scan_ref(cfg, x, st1, nb, **mode),
                                  f"{name} C={c}, carried state"))
     torch.cuda.synchronize()
-    ms = _time_ms(lambda: fsk.fsk_scan(cfg, x, st0, nb))
-    call = _time_ms(lambda: fsk.fsk_scan(cfg, x, st0, nb), ahead=False)
+    ms = _time_ms(lambda: fsk.fsk_scan(cfg, x, st0, nb, **mode))
+    call = _time_ms(lambda: fsk.fsk_scan(cfg, x, st0, nb, **mode),
+                    ahead=False)
     # the twin's thousands of small launches fill the launch queue, so
     # it cannot be queued ahead of the card: its device time is the
     # profiler's sum of its kernels, beside its time at the host's pace
-    plain = _device_busy_ms(lambda: fsk.fsk_scan_ref(cfg, x, st0, nb))
-    plain_call = _time_ms(lambda: fsk.fsk_scan_ref(cfg, x, st0, nb),
+    plain = _device_busy_ms(lambda: fsk.fsk_scan_ref(cfg, x, st0, nb,
+                                                     **mode))
+    plain_call = _time_ms(lambda: fsk.fsk_scan_ref(cfg, x, st0, nb, **mode),
                           reps=3, ahead=False)
-    b_ms, b_by = scan_bound(cfg, c, nb)
+    b_ms, b_by = scan_bound(cfg, c, nb, None if buffered else t)
     per_block = ms * 1e3 / nb
-    print(f"fsk_scan {name} C={c} blocks={nb} n={cfg.n} ndft={cfg.ndft} "
+    print(f"fsk_scan{'' if buffered else ' unbuffered'} {name} C={c} "
+          f"blocks={nb} n={cfg.n} ndft={cfg.ndft} "
           f"M={cfg.m}: bits, f_est, ptr, nin equal; soft max_abs_err="
           f"{err:.3e} (tol {SCAN_TOL} of peak; also sf, tmag, Eb/N0; "
           f"initial and carried state; twin on the CPU"
@@ -1394,6 +1444,289 @@ def seq_phase(dev, card):
     return out
 
 
+# ---------------------------------------------------------------------- #
+# phase 10: the command lines
+
+# where phase 10 writes its capture, logs and checkpoint (git ignores it)
+WORK = Path(__file__).resolve().parent / "build" / "chip_smoke"
+
+
+def write_cs16(path, planes):
+    """int16 [2, T] planes -> an interleaved cs16 file."""
+    np.ascontiguousarray(planes.T).astype("<i2").tofile(path)
+
+
+def log_rows(logdir):
+    """{the per-sonde log's name after its wall-clock time: its rows}."""
+    return {p.name.split("_", 1)[1]: p.read_text().splitlines()[1:]
+            for p in sorted(Path(logdir).glob("*_sonde.log"))}
+
+
+def _row_key(row):
+    """A log row's (serial, frame, lat, lon, alt), as ``_key`` keeps
+    them (the log prints lat/lon to 5 decimals, alt to 1)."""
+    f = row.split(",")
+    return (f[1], int(f[2]), round(float(f[3]), 4), round(float(f[4]), 4),
+            round(float(f[5]), 1))
+
+
+class PoolTickets:
+    """Counts the frame-plane tickets resolved by worker processes (a
+    wrapper around ``FramePlane.gather`` for the duration of a
+    ``with``): ``pooled`` tickets gathered from workers, ``inline``
+    gathers of an inline plane."""
+
+    def __enter__(self):
+        from radiosonde_auto_rx_tpu_torch.station import frame_plane
+        self.pooled, self.inline = 0, 0
+        self._cls, self._orig = frame_plane.FramePlane, \
+            frame_plane.FramePlane.gather
+        orig = self._orig
+
+        def gather(plane, *a, **kw):
+            if plane.workers > 0:
+                self.pooled += plane._pending
+            else:
+                self.inline += 1
+            return orig(plane, *a, **kw)
+        self._cls.gather = gather
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.gather = self._orig
+
+
+class HostTime:
+    """Host seconds spent inside some functions (each ``(owner, name)``
+    wrapped for the duration of a ``with``), by name."""
+
+    def __init__(self, *targets):
+        self._targets = targets
+        self.seconds = {name: 0.0 for _, name in targets}
+
+    def __enter__(self):
+        self._orig = [getattr(owner, name) for owner, name in self._targets]
+        for (owner, name), fn in zip(self._targets, self._orig):
+            def timed(*a, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.seconds[_name] += time.perf_counter() - t0
+            setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for (owner, name), fn in zip(self._targets, self._orig):
+            setattr(owner, name, fn)
+
+
+def compute_pids():
+    """PIDs of the processes holding a CUDA context on the card, as
+    ``nvidia-smi`` lists them (in another PID namespace: only their
+    count means anything here)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return sorted(int(v) for v in out.stdout.split() if v.strip().isdigit())
+
+
+def maps_cuda_driver(pid) -> bool:
+    """Whether process ``pid`` has the CUDA driver library mapped, as
+    every process that holds a CUDA context has."""
+    with open(f"/proc/{pid}/maps") as f:
+        return any("libcuda.so" in line for line in f)
+
+
+def cli_phase(dev, card):
+    """Phase 10: the station's command line and the demod CLI on the card
+    (see the module docstring).  Returns its launches and times."""
+    import torch
+    from radiosonde_auto_rx_tpu_torch import kernels
+    from radiosonde_auto_rx_tpu_torch.demod import cli as demod_cli
+    from radiosonde_auto_rx_tpu_torch.demod.modulate import (add_awgn,
+                                                             gfsk_mod)
+    from radiosonde_auto_rx_tpu_torch.models.rs92 import make_test_ephemeris
+    from radiosonde_auto_rx_tpu_torch.station import main as cli
+    from radiosonde_auto_rx_tpu_torch.station.checkpoint import \
+        load_station_state
+    from radiosonde_auto_rx_tpu_torch.station.config import default_config
+    from radiosonde_auto_rx_tpu_torch.station.frame_plane import FramePlane
+    from radiosonde_auto_rx_tpu_torch.station.station import Station
+    t_phase = time.perf_counter()
+    shutil.rmtree(WORK, ignore_errors=True)
+    WORK.mkdir(parents=True)
+    out = {}
+    # (a) run_station in-process on phase 3's capture as a cs16 file:
+    # no task, the pool at the reference's default, a checkpoint, the
+    # per-sonde log exporter and the web server on an ephemeral port
+    stream = synth_stream(N_CHAN, FS_WIDE, SECONDS)
+    cap = WORK / "phase3.cs16"
+    write_cs16(cap, stream)
+    config = {**default_config(), **STATION_CFG, "frame_plane_workers": -1,
+              "capture_rate": FS_WIDE, "num_channels": N_CHAN,
+              "rs92_ephemeris": make_test_ephemeris(),
+              "sondehub_enabled": False, "aprs_enabled": False,
+              "web_port": 0, "web_host": "127.0.0.1"}
+    args = cli.parse_args(["--device", str(dev), "--replay", str(cap),
+                           "--center",
+                           str(CENTER / 1e6), "--log-dir",
+                           str(WORK / "log"), "--checkpoint",
+                           str(WORK / "station.ckpt")])
+    kernels.reset_launches()
+    with DemodCalls() as calls, PoolTickets() as tickets:
+        t0 = time.perf_counter()
+        rc = cli.run_station(args, config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    if rc != cli.EXIT_OK:
+        raise AssertionError(f"phase 10 run_station exited {rc}")
+    check_path_launches(launches, calls.calls, "phase 10 CLI")
+    if tickets.pooled <= 0 or tickets.inline:
+        raise AssertionError(f"phase 10: {tickets.pooled} tickets served by "
+                             f"workers, {tickets.inline} inline gathers")
+    blocks = split_blocks(stream, FS_WIDE, 2)
+    (ref,), _ = drive_station(dev, [blocks], N_CHAN, FS_WIDE, manual=False)
+    rows = log_rows(WORK / "log")
+    got = sorted(_row_key(r) for v in rows.values() for r in v)
+    want = sorted(k[1:] for k in map(_key, ref[1]))
+    if got != want or not got:
+        raise AssertionError(f"phase 10: the CLI's log rows {got} are not "
+                             f"drive_station's telemetry {want}")
+    seen = check_telemetry(ref[1], N_CHAN, FS_WIDE, ("RS41", "DFM"))
+    resumed = make_station(dev, N_CHAN, FS_WIDE, manual=False)
+    if not load_station_state(resumed, str(WORK / "station.ckpt")) or \
+            sorted(v["type"] for v in resumed.active.values()) != \
+            sorted(v["type"] for v in ref[0].active.values()):
+        raise AssertionError("phase 10: the checkpoint does not hold the "
+                             "station's tasks")
+    resumed.close()
+    out["cli"] = dict(launches=launches, demod_calls=calls.calls,
+                      pooled_tickets=tickets.pooled, wall_s=wall)
+    print(f"phase 10 (a) run_station on {SECONDS} s of cs16 ({len(blocks)} "
+          f"blocks of 2 s, no task, the pool at -1 on {os.cpu_count()} "
+          f"cores, checkpoint, log exporter, web server on port 0): exit "
+          f"{rc} in {wall:.2f} s; logs {sorted(rows)} = drive_station's "
+          f"telemetry {seen}; {tickets.pooled} tickets served by workers; "
+          f"launches {launches}, demod calls {calls.calls} ({card})")
+    # the steady 1 s block with the pool and without it, in turns, with
+    # the host time in the frame decode: inline, the station's decode
+    # calls; pooled, the enqueue of the tickets and the wait for them
+    # nvidia-smi's PIDs are another PID namespace's: count the apps
+    # (this process's context, before any worker exists) and read the
+    # workers' own memory maps
+    apps_before = compute_pids()
+    if not maps_cuda_driver(os.getpid()):
+        raise AssertionError("phase 10: this process does not map the CUDA "
+                             "driver, so the workers' maps prove nothing")
+    walls, decode_s = {}, {}
+    for workers in (0, -1, -1, 0):
+        with HostTime((Station, "_decode_frames"), (FramePlane, "decode"),
+                      (FramePlane, "gather")) as ht:
+            (res,), _ = drive_station(
+                dev, [split_blocks(stream, FS_WIDE, 1) * 2], N_CHAN,
+                FS_WIDE, frame_plane_workers=workers)
+        st = res[0]
+        for k, v in ht.seconds.items():
+            decode_s.setdefault(workers, {}).setdefault(k, []).append(
+                v / len(res[2]))
+        if workers:
+            out["routes"] = {fz: st.frame_plane._route(fz)
+                             for fz in sorted(st.active)}
+            procs = [p.pid for p in st.frame_plane._procs]
+            apps = compute_pids()
+            driver = [p for p in procs if maps_cuda_driver(p)]
+            if not procs or driver or len(apps) > len(apps_before):
+                raise AssertionError(
+                    f"phase 10: pool workers {procs}, of which {driver} map "
+                    f"the CUDA driver; compute apps {apps} (before the pool "
+                    f"{apps_before})")
+        st.close()
+        walls.setdefault(workers, []).extend(ms for _, ms in res[2][1:])
+    out["block_ms"] = {("pool" if k else "inline"): statistics.median(v)
+                       for k, v in walls.items()}
+    out["decode_host_ms"] = {
+        ("pool" if k else "inline"): {
+            name: 1e3 * statistics.mean(v) for name, v in d.items() if any(v)}
+        for k, d in decode_s.items()}
+    print(f"phase 10 (a) steady 1 s block with manual tasks, median of "
+          f"{len(walls[0])} blocks each: inline "
+          f"{out['block_ms']['inline']:.2f} ms, pool "
+          f"{out['block_ms']['pool']:.2f} ms; host ms a block "
+          f"(first block included) in the frame decode "
+          f"{json.dumps(out['decode_host_ms'])}; the tasks' workers "
+          f"{out['routes']}; pool workers hold "
+          f"no CUDA context (none maps the CUDA driver; nvidia-smi compute "
+          f"apps {len(apps_before)} before the pool and with it) ({card})")
+    # (b) the station as a user starts it, single-frequency, in a child
+    cfg_file = WORK / "station.cfg"
+    cfg_file.write_text("[filtering]\nsonde_time_threshold = 1000000\n")
+    typ, serial, f_off, _, _ = sondes_for(N_CHAN, FS_WIDE)[0]
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "radiosonde_auto_rx_tpu_torch", "-c",
+         str(cfg_file), "--replay", str(cap), "--center",
+         str(CENTER / 1e6), "-f", f"{(CENTER + f_off) / 1e6:.6f}", "-m",
+         typ, "--no-web", "--log-dir", str(WORK / "log_f")],
+        capture_output=True, text=True, timeout=300,
+        cwd=Path(__file__).resolve().parent)
+    if res.returncode != 0:
+        raise AssertionError(f"phase 10 (b): exit {res.returncode}\n"
+                             f"{res.stderr[-3000:]}")
+    rows_f = log_rows(WORK / "log_f")
+    if [k.split("_")[0] for k in rows_f] != [serial] or \
+            not rows_f[next(iter(rows_f))]:
+        raise AssertionError(f"phase 10 (b): logs {rows_f}")
+    print(f"phase 10 (b) python -m radiosonde_auto_rx_tpu_torch --replay "
+          f"-f -m {typ}: exit 0 in {time.perf_counter() - t0:.2f} s, "
+          f"{len(next(iter(rows_f.values())))} rows in {sorted(rows_f)}")
+    # (c) the demod CLI on an RS41 stream of test frames, on the card and
+    # on the CPU: the same hard bits
+    secs = 4
+    tx = np.tile(demod_cli.test_frame_bits(), secs * 4800 // 100 + 1)
+    iq = add_awgn(gfsk_mod(tx, 48000, 4800, 2, 0.0, 5000), 14.0, 48000,
+                  4800, rng=np.random.default_rng(9))[:secs * 48000]
+    wire = np.empty(2 * len(iq), np.int16)
+    wire[0::2] = np.clip(iq.real * 16384, -32767, 32767)
+    wire[1::2] = np.clip(iq.imag * 16384, -32767, 32767)
+    argv = ["-p", "5", "--nsym", "300", "-b", "-5000", "-u", "5000",
+            "--mask", "5000", "--hardout", "--testframes", "2", "48000",
+            "4800", "-", "-"]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        o, e = io.BytesIO(), io.StringIO()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = demod_cli.run(demod_cli.parse_args(["--device", device] + argv),
+                           stdin=io.BytesIO(wire.tobytes()), stdout=o,
+                           stderr=e)
+        torch.cuda.synchronize()
+        runs[device] = (rc, o.getvalue(), e.getvalue(),
+                        time.perf_counter() - t0, dict(kernels.launches))
+    (rc_g, bits_g, err_g, wall_g, l_g), (rc_c, bits_c, _, wall_c, l_c) = \
+        runs["cuda"], runs["cpu"]
+    frames = [ln for ln in err_g.splitlines() if "FSK BER" in ln]
+    n_chunks = l_g["fsk_scan_unbuffered"]
+    if rc_g or rc_c or bits_g != bits_c or not bits_g or not frames or \
+            n_chunks <= 0 or l_g["fsk_scan"] != n_chunks or \
+            l_g["freq_est_sf"] or any(l_c.values()):
+        raise AssertionError(f"phase 10 (c): rc {rc_g}/{rc_c}, bits equal "
+                             f"{bits_g == bits_c} ({len(bits_g)}), frames "
+                             f"{len(frames)}, launches {l_g} / {l_c}")
+    out["demod_cli"] = dict(launches=l_g, seconds=secs, wall_s=wall_g,
+                            cpu_wall_s=wall_c, realtime=secs / wall_g)
+    print(f"phase 10 (c) demod CLI, RS41 test frames, {secs} s at 48 kHz: "
+          f"{len(bits_g)} bits equal on the card and the CPU; "
+          f"{len(frames)} test frames, last: {frames[-1]}; {n_chunks} "
+          f"unbuffered scan launches ({CLI_CHUNK} demod blocks a call); "
+          f"wall {wall_g:.3f} s on the card ({secs / wall_g:.1f}x real "
+          f"time), {wall_c:.3f} s on the CPU ({card})")
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def check_detections(per_block, types_freqs):
     """After the run, one task per sonde, with its type and within 2 kHz
     (``NEAR_HZ``) of its frequency."""
@@ -1447,6 +1780,14 @@ def main() -> int:
         scan = scan or res
         scan["max_abs_err"] = max(scan["max_abs_err"], res["max_abs_err"])
     scan = dict(scan, shapes=shapes)
+    unbuf, shapes = None, []
+    for seed, (name, c) in enumerate(UNBUF_SHAPES):
+        res = check_scan(dev, name, cfg_of(name), c, seed, buffered=False)
+        shapes.append(dict(chain=name, channels=c, **{
+            k: v for k, v in res.items() if k != "max_abs_err"}))
+        unbuf = unbuf or res
+        unbuf["max_abs_err"] = max(unbuf["max_abs_err"], res["max_abs_err"])
+    unbuf = dict(unbuf, shapes=shapes)
     k2, k2_wide = check_k2(dev, 1), check_k2(dev, 10, seed=1)
     k2["shapes"] = [dict(n=2048, rows=rows, **{
         k: v for k, v in res.items() if k != "max_abs_err"})
@@ -1565,12 +1906,21 @@ def main() -> int:
     # 9. the sequential station with the prescreen, and L-band
     seq = seq_phase(dev, card)
 
+    # 10. the command lines: the station's and the demod CLI
+    cli = cli_phase(dev, card)
+
     entries = []
     for name, src, rep, res, n in (
             ("fsk_scan", "radiosonde_auto_rx_tpu_torch/csrc/fsk_scan.cu",
              "radiosonde_auto_rx_tpu/ops/pallas_fsk.py:84 + the demod block "
              "around it, radiosonde_auto_rx_tpu/demod/fsk.py:306 in the "
              "lax.scan of :497", scan, d_launches["fsk_scan"]),
+            ("fsk_scan_unbuffered",
+             "radiosonde_auto_rx_tpu_torch/csrc/fsk_scan.cu",
+             "radiosonde_auto_rx_tpu/ops/pallas_fsk.py:84 + the demod block "
+             "around it, radiosonde_auto_rx_tpu/demod/fsk.py:306 in the "
+             "lax.scan of :470 (_fsk_demod_scan, :492)", unbuf,
+             cli["demod_cli"]["launches"]["fsk_scan_unbuffered"]),
             ("freq_est_sf", "radiosonde_auto_rx_tpu_torch/csrc/fsk_sf.cu",
              "radiosonde_auto_rx_tpu/ops/pallas_fsk.py:84", k1, k1_launches),
             ("fft_abs2", "radiosonde_auto_rx_tpu_torch/csrc/fft_abs2.cu",
@@ -1581,15 +1931,23 @@ def main() -> int:
              k3_launches)):
         entries.append(dict(name=name, route="cuda", source=src,
                             replaces=rep, launches=n, **res))
-    entries[0]["phase8_launches"] = {
+    by_name = {e["name"]: e for e in entries}
+    scan_e, k1_e, k2_e = (by_name[k] for k in ("fsk_scan", "freq_est_sf",
+                                               "fft_abs2"))
+    scan_e["phase8_launches"] = {
         tag: v["launches"]["fsk_scan"] for tag, v in paths.items()}
-    entries[2]["phase8_launches"] = {
+    k2_e["phase8_launches"] = {
         tag: v["launches"]["fft_abs2"] for tag, v in paths.items()}
-    for e, key in ((entries[0], "fsk_scan"), (entries[2], "fft_abs2")):
+    for e, key in ((scan_e, "fsk_scan"), (k2_e, "fft_abs2")):
         e["phase9_launches"] = {tag: v[key] for tag, v in seq.items()}
-    entries[1]["path"] = "ops.fsk_sf.freq_est_sf"
-    entries[1]["station_launches"] = d_launches["freq_est_sf"]
-    entries[3]["path"] = "ops.fft.fft"
+        e["phase10_launches"] = cli["cli"]["launches"][key]
+    by_name["fsk_scan_unbuffered"]["path"] = \
+        "demod.cli.run (fsk_demod_stream(buffered=False))"
+    by_name["fsk_scan_unbuffered"]["demod_cli"] = cli["demod_cli"]
+    scan_e["cli_block_ms"] = cli["block_ms"]
+    k1_e["path"] = "ops.fsk_sf.freq_est_sf"
+    k1_e["station_launches"] = d_launches["freq_est_sf"]
+    by_name["fft"]["path"] = "ops.fft.fft"
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -36,11 +36,16 @@
 // order of the long sums (the FFT against the matrix product, the timing and
 // Eb/N0 sums), a few float32 ulps.
 //
-// The window buffer: at demod block b the scan reads the reference's own
-// rolling buffer x[c, :, b*n : b*n + nmem + slack] into shared memory with
-// 4-byte cp.async (rows start at any float: M10 has n = 745), block b+1's
-// buffer in flight while block b computes when two buffers fit (every chain
-// but MTS01), and takes the window at the channel's offset off.
+// The window buffer: at demod block b the buffered scan reads the
+// reference's own rolling buffer x[c, :, b*n : b*n + nmem + slack] into
+// shared memory with 4-byte cp.async (rows start at any float: M10 has
+// n = 745), block b+1's buffer in flight while block b computes when two
+// buffers fit (every chain but MTS01), and takes the window at the
+// channel's offset off.  The unbuffered scan (the reference's
+// _fsk_demod_scan) reads block b's window at [ptr - nmem, ptr) of the
+// channel's stream, its start clamped into [0, T - nmem] as
+// jax.lax.dynamic_slice clamps it; ptr is known only once block b-1's nin
+// is, so its one buffer (slack 0) is loaded after the carry is updated.
 //
 // Compiled for the CPU by tests/cuda_shim (g++, every CUDA thread a host
 // thread): cp.async becomes a plain copy there, and nothing here uses warp
@@ -253,7 +258,7 @@ enum ScanPtr {
 enum ScanInt {
   iC, iT, iBlocks, iM, iP, iNsym, iTs, iNdft, iNf, iEstType, iEstSt, iEstEn,
   iEstSpace, iMaskNb, iQ, iNA, iOff0, iOffMax, iWrap, iSlack, iNOffs, iOffs,
-  kScanInts = iOffs + kMaxOffs
+  iUnbuffered = iOffs + kMaxOffs, kScanInts
 };
 enum ScanFloat { fFs, fBinHz, fSpacing, fDecay, kScanFloats };
 
@@ -275,6 +280,7 @@ struct ScanArgs {
       mask_nb, q, na, off0, off_max, wrap, slack, n_offs;
   int offs[kMaxOffs];
   float fs, bin_hz, spacing, decay;
+  int unbuffered;   // 1: the window at [ptr - nmem, ptr), slack 0
   int stages;   // window buffers in shared memory: 1, or 2 (double buffered)
 };
 
@@ -330,6 +336,7 @@ inline ScanArgs scan_args(const void* const* p, const int* g,
   a.bin_hz = f[fBinHz];
   a.spacing = f[fSpacing];
   a.decay = f[fDecay];
+  a.unbuffered = g[iUnbuffered];
   a.stages = 1;
   return a;
 }
@@ -375,6 +382,14 @@ __device__ inline void load_buffer(float* buf, const float* xc, long long T,
     for (int i = threadIdx.x; i < w; i += kThreads)
       copy4_async(dst + i, src + i);
   }
+}
+
+// The unbuffered scan's window start for a channel at pointer ptr:
+// ptr - nmem clamped into [0, T - nmem].
+__host__ __device__ inline long long window_start(long long ptr, int nmem,
+                                                  long long T) {
+  const long long s = ptr - nmem;
+  return s < 0 ? 0 : (s > T - nmem ? T - nmem : s);
 }
 
 // sum_{pp < P} v[i + pp], in order (the integrate-and-dump)
@@ -613,9 +628,10 @@ __device__ void resample(const ScanArgs& a, int c, int b, const float* ps,
   *smx2 = s2;
 }
 
-// Channel c's whole buffered scan: every demod block, the carry held in
-// shared memory.  smem: scan_map(a, a.stages).total floats.  Every thread
-// of the block calls it.
+// Channel c's whole scan, buffered or unbuffered (a.unbuffered, then with
+// one window buffer): every demod block, the carry held in shared memory.
+// smem: scan_map(a, a.stages).total floats.  Every thread of the block
+// calls it.
 template <int LOG2N, int M>
 __device__ void scan_channel(const ScanArgs& a, int c, float* smem) {
   using S = SpecPlan<LOG2N>;
@@ -649,7 +665,8 @@ __device__ void scan_channel(const ScanArgs& a, int c, float* smem) {
     cy->ppm = a.ppm_in[c];
     cy->nin = n;
   }
-  load_buffer(buf, xc, a.T, 0, w);
+  load_buffer(buf, xc, a.T,
+              a.unbuffered ? window_start(a.ptr_in[c], nmem, a.T) : 0, w);
   async_commit();
   for (int b = 0; b < a.nb; ++b) {
     float* cur = buf + (a.stages == 2 ? (b & 1) : 0) * 2 * w;
@@ -692,14 +709,19 @@ __device__ void scan_channel(const ScanArgs& a, int c, float* smem) {
       if (a.probe_timing) a.probe_timing[cb] = cy->norm;
       cy->timing = cy->norm;
       cy->ptr += cy->nin;
-      int off = cy->off + (cy->nin - n);
-      if (off > a.off_max) off -= a.wrap;
-      if (off < 0) off += a.wrap;
-      cy->off = off < 0 ? 0 : (off > a.off_max ? a.off_max : off);
+      if (!a.unbuffered) {
+        int off = cy->off + (cy->nin - n);
+        if (off > a.off_max) off -= a.wrap;
+        if (off < 0) off += a.wrap;
+        cy->off = off < 0 ? 0 : (off > a.off_max ? a.off_max : off);
+      }
     }
     __syncthreads();                // cur and the scratch are free
     if (a.stages == 1 && b + 1 < a.nb) {
-      load_buffer(buf, xc, a.T, static_cast<long long>(b + 1) * n, w);
+      load_buffer(buf, xc, a.T,
+                  a.unbuffered ? window_start(cy->ptr, nmem, a.T)
+                               : static_cast<long long>(b + 1) * n,
+                  w);
       async_commit();
     }
   }

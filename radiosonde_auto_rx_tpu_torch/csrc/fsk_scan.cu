@@ -1,11 +1,13 @@
-// The buffered FSK demod scan as ONE persistent launch per
-// demod/fsk.py::fsk_demod_stream call: every demod block of every channel.
+// The FSK demod scan as ONE persistent launch per
+// demod/fsk.py::fsk_demod_stream call: every demod block of every channel,
+// in the buffered mode (the station's) or the unbuffered one (the
+// standalone demod CLI's, demod/cli.py).
 //
 // Replaces radiosonde_auto_rx_tpu/ops/pallas_fsk.py::_sf_kernel (K1, the
 // pallas_call at :84, now the scan's spectral stage) together with the
 // demod block around it that the JAX package leaves to XLA
 // (radiosonde_auto_rx_tpu/demod/fsk.py::fsk_demod_block inside
-// _fsk_demod_scan_buffered's lax.scan).  The port ran that block as ~150
+// _fsk_demod_scan_buffered's lax.scan, or _fsk_demod_scan's).  The port ran that block as ~150
 // small torch ops per demod block, ~3,150 launches per steady 1 s station
 // block; this kernel is one launch per chain (type group).
 //
@@ -71,8 +73,10 @@ extern "C" int rsx_fsk_scan(const void* const* ptrs, const int* geo,
                                device);
   if (err != cudaSuccess) return err;
   ScanArgs a = scan_args(ptrs, geo, fgeo);
-  a.stages = sizeof(float) * scan_map(a, 2).total <=
-                     static_cast<size_t>(optin) ? 2 : 1;
+  // the unbuffered window's start is known only after the previous
+  // block: one buffer, loaded between blocks
+  a.stages = !a.unbuffered && sizeof(float) * scan_map(a, 2).total <=
+                                  static_cast<size_t>(optin) ? 2 : 1;
   const size_t bytes = sizeof(float) * scan_map(a, a.stages).total;
   if (bytes > static_cast<size_t>(optin) || a.C < 1 || a.nb < 1)
     return cudaErrorInvalidValue;

@@ -1,4 +1,4 @@
-"""Channel-batched non-coherent M-FSK demodulator (buffered scan).
+"""Channel-batched non-coherent M-FSK demodulator.
 
 Port of ``radiosonde_auto_rx_tpu/demod/fsk.py`` (codec2 fsk.c re-derived
 as block-parallel tensor math — see that module's notes).  IQ is
@@ -6,15 +6,17 @@ float32 ``[C, 2, T]`` planes; all state carries a leading ``[C]`` axis.
 A CPU tensor runs the plain twin ``fsk_scan_ref``: the reference's
 ``lax.scan`` over blocks as a Python loop of torch ops, with the spectral
 pass as K1's twin ``ops.fsk_sf.freq_est_sf_ref``.  A CUDA tensor runs
-``fsk_scan``: the whole buffered scan, every demod block of every
-channel, as one launch of the hand-written kernel ``csrc/fsk_scan.cu``
-(K1 as its spectral stage; ``csrc/fsk_block.cuh``); there is no path
-from a CUDA tensor to the twin.
+``fsk_scan``: the whole scan, every demod block of every channel, as one
+launch of the hand-written kernel ``csrc/fsk_scan.cu`` (K1 as its
+spectral stage; ``csrc/fsk_block.cuh``); there is no path from a CUDA
+tensor to the twin.
 
-Only the buffered (gather-free) scan is ported; ``buffered=False``
-raises.  Soft-decision conventions match the reference exactly:
-2FSK ``sd = |tone0| - |tone1|`` (positive ⇒ bit 0); 4FSK sum form
-(positive ⇒ bit 1).
+Both scans of the reference are ported: the buffered (gather-free) one,
+the default, and the unbuffered one (``buffered=False``, the reference's
+``_fsk_demod_scan``: each window read at ``[ptr - nmem, ptr)``), which
+the standalone demod CLI runs.  Soft-decision conventions match the
+reference exactly: 2FSK ``sd = |tone0| - |tone1|`` (positive ⇒ bit 0);
+4FSK sum form (positive ⇒ bit 1).
 """
 
 from dataclasses import dataclass
@@ -451,9 +453,9 @@ def _stream_layout(C: int, outs: dict) -> dict:
 
 
 def fsk_scan_ref(cfg: FSKConfig, x, state: FSKState, n_blocks: int,
-                 probe: bool = False):
-    """Plain twin of ``fsk_scan``: the buffered scan as a Python loop of
-    torch ops (``fsk_demod_block`` with K1's twin), on any device.
+                 probe: bool = False, buffered: bool = True):
+    """Plain twin of ``fsk_scan``: the scan as a Python loop of torch ops
+    (``fsk_demod_block`` with K1's twin), on any device.
 
     The reference's rolling [C, 2, nmem + slack] buffer is advanced by a
     SHARED ``n`` samples per block, with each channel's ±ts/2 clock
@@ -461,20 +463,28 @@ def fsk_scan_ref(cfg: FSKConfig, x, state: FSKState, n_blocks: int,
     slack center by a grid-aligned jump, ``_slack_wrap``).  At block b
     that buffer holds ``x[..., b*n : b*n + nmem + slack]``, so the window
     is gathered from ``x`` at ``b*n + off`` directly — the same samples,
-    no buffer copy.
+    no buffer copy.  ``buffered=False`` is the reference's plain scan
+    (``_fsk_demod_scan``): block b's window is ``x[..., ptr - nmem :
+    ptr]`` at the channel's running pointer, its start clamped into
+    ``[0, T - nmem]`` as ``jax.lax.dynamic_slice`` clamps it.
 
     x: [C, 2, T] float32.  Returns (state, outs) in the stream layout:
     soft/bits [C, n_blocks*nsym*bps], f_est [C, n_blocks, M], ebno_db and
     ppm [C, n_blocks]; with ``probe`` also sf [C, n_blocks, ndft], timing
     [C, n_blocks] and tmag [C, n_blocks, M, nsym]."""
-    C = x.shape[0]
+    C, _, T = x.shape
     kc = _consts(cfg, x.device)
     off0, off_max, wrap = _offsets(cfg)
     off = torch.full((C,), off0, dtype=torch.int64, device=x.device)
     st = state
     outs = []
     for b in range(n_blocks):
-        idx = (b * cfg.n + off)[:, None] + kc.win_idx[None, :]   # [C, nmem]
+        if buffered:
+            start = b * cfg.n + off
+        else:
+            start = torch.clamp(st["ptr"].long() - cfg.nmem, 0,
+                                T - cfg.nmem)
+        idx = start[:, None] + kc.win_idx[None, :]               # [C, nmem]
         win = torch.gather(x, 2, idx[:, None, :].expand(C, 2, cfg.nmem))
         out, newp = fsk_demod_block(cfg, win, st, probe=probe,
                                     spectral=freq_est_sf_ref)
@@ -498,6 +508,11 @@ def _slack_wrap(ts: int, half_ts: int, off_max: int) -> int:
     return max(half_ts, (off_max // (2 * half_ts)) * half_ts)
 
 
+def fsk_num_blocks(cfg: FSKConfig, t_samples: int) -> int:
+    """Demod blocks the unbuffered scan takes from ``t_samples``."""
+    return max(0, (t_samples - cfg.nmem) // cfg.block_advance_max)
+
+
 def fsk_num_blocks_buffered(cfg: FSKConfig, t_samples: int,
                             slack_ts: int = SLACK_TS) -> int:
     w = cfg.nmem + slack_ts * cfg.ts
@@ -519,7 +534,7 @@ MAX_MASK_OFFS = 12
 SCAN_INTS = ("C", "T", "n_blocks", "m", "p", "nsym", "ts", "ndft", "nf",
              "est_type", "est_st", "est_en", "est_space", "mask_nb", "q",
              "na", "off0", "off_max", "wrap", "slack", "n_offs",
-             *(f"offs{i}" for i in range(MAX_MASK_OFFS)))
+             *(f"offs{i}" for i in range(MAX_MASK_OFFS)), "unbuffered")
 SCAN_FLOATS = ("fs", "bin_hz", "tone_spacing", "decay")
 
 
@@ -536,7 +551,7 @@ def _check_state(cfg: FSKConfig, state: FSKState, C: int, device):
 
 
 def _scan_operands(cfg: FSKConfig, x, state: FSKState, n_blocks: int,
-                   probe: bool = False):
+                   probe: bool = False, buffered: bool = True):
     """The scan kernel's operands for x [C, 2, T] (on any device: the
     CPU tests hand them to the kernel source compiled for the CPU).
 
@@ -552,8 +567,10 @@ def _scan_operands(cfg: FSKConfig, x, state: FSKState, n_blocks: int,
     if two != 2 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("fsk_scan kernel: x must be contiguous float32 "
                          "[C, 2, T] planes")
-    w = cfg.nmem + SLACK_TS * cfg.ts
-    if n_blocks < 1 or C < 1 or (n_blocks - 1) * cfg.n + w > T:
+    # the unbuffered scan clamps each window into [0, T - nmem]
+    w = cfg.nmem + SLACK_TS * cfg.ts if buffered else cfg.nmem
+    span = (n_blocks - 1) * cfg.n + w if buffered else w
+    if n_blocks < 1 or C < 1 or span > T:
         raise ValueError(f"fsk_scan kernel: {n_blocks} blocks do not fit "
                          f"[{C}, 2, {T}]")
     _check_state(cfg, state, C, dev)
@@ -592,14 +609,15 @@ def _scan_operands(cfg: FSKConfig, x, state: FSKState, n_blocks: int,
         mask_nb = en - len_mask - st
         if mask_nb <= 0:
             raise ValueError("est range too narrow for mask correlator")
-    off0, off_max, wrap = _offsets(cfg)
+    off0, off_max, wrap = _offsets(cfg) if buffered else (0, 0, 0)
     ints = dict(C=C, T=T, n_blocks=nb, m=M, p=cfg.p, nsym=nsym, ts=cfg.ts,
                 ndft=cfg.ndft, nf=cfg.numffts, est_type=cfg.freq_est_type,
                 est_st=st, est_en=en, est_space=cfg.est_space_bins,
                 mask_nb=mask_nb, q=k.Q, na=k.nA, off0=off0, off_max=off_max,
-                wrap=wrap, slack=SLACK_TS * cfg.ts, n_offs=len(offs),
+                wrap=wrap, slack=w - cfg.nmem, n_offs=len(offs),
                 **{f"offs{i}": (offs[i] if i < len(offs) else 0)
-                   for i in range(MAX_MASK_OFFS)})
+                   for i in range(MAX_MASK_OFFS)},
+                unbuffered=int(not buffered))
     floats = dict(fs=float(cfg.fs), bin_hz=float(cfg.fs / cfg.ndft),
                   tone_spacing=float(cfg.tone_spacing), decay=k.decay)
     return ([tensors[n] for n in SCAN_POINTERS],
@@ -608,17 +626,19 @@ def _scan_operands(cfg: FSKConfig, x, state: FSKState, n_blocks: int,
 
 
 def fsk_scan(cfg: FSKConfig, x, state: FSKState, n_blocks: int,
-             probe: bool = False):
-    """The whole buffered scan as one launch of ``csrc/fsk_scan.cu``: one
+             probe: bool = False, buffered: bool = True):
+    """The whole scan as one launch of ``csrc/fsk_scan.cu``: one
     256-thread block per channel walks the demod blocks with its carry in
     shared memory.  Same arguments and result as ``fsk_scan_ref``; x and
     the state must be contiguous and on one CUDA device (M 2 or 4, ndft
-    64-512), else it raises."""
+    64-512), else it raises.  ``launches["fsk_scan"]`` counts both modes,
+    ``launches["fsk_scan_unbuffered"]`` the unbuffered one alone."""
     import ctypes
     if x.device.type != "cuda":
         raise ValueError(f"fsk_scan: no kernel for device {x.device}")
     ptrs, ints, floats, (new, outs) = _scan_operands(cfg, x, state,
-                                                     n_blocks, probe)
+                                                     n_blocks, probe,
+                                                     buffered)
     p_arr = (ctypes.c_void_p * len(ptrs))(
         *[None if t is None else t.data_ptr() for t in ptrs])
     i_arr = (ctypes.c_int * len(ints))(*ints)
@@ -631,6 +651,8 @@ def fsk_scan(cfg: FSKConfig, x, state: FSKState, n_blocks: int,
         torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "fsk_scan")
     kernels.launches["fsk_scan"] += 1
+    if not buffered:
+        kernels.launches["fsk_scan_unbuffered"] += 1
     return new, outs
 
 
@@ -644,11 +666,10 @@ def fsk_demod_stream(cfg: FSKConfig, x, device, state: FSKState | None = None,
     ``probe=True`` also ``sf`` [C, nb, ndft], ``timing`` [C, nb] and
     ``tmag`` [C, nb, M, nsym].  A CPU tensor runs the plain scan
     ``fsk_scan_ref``, a CUDA tensor one launch of the scan kernel
-    ``fsk_scan``.  Only the buffered scan is ported."""
-    if not buffered:
-        raise NotImplementedError(
-            "the unbuffered FSK scan is not ported (ROADMAP.md queue 1: "
-            "CLI, sources and tools, with demod/cli.py)")
+    ``fsk_scan``.  ``buffered`` (the default) selects the gather-free
+    rolling-buffer scan; ``buffered=False`` the plain per-channel window
+    at the running pointer (``fsk_num_blocks`` blocks; the state's
+    ``ptr`` carries where the next call's first window ends)."""
     is_cplx = x.is_complex() if isinstance(x, torch.Tensor) \
         else np.iscomplexobj(x)
     squeeze = is_cplx and len(x.shape) == 1
@@ -656,14 +677,16 @@ def fsk_demod_stream(cfg: FSKConfig, x, device, state: FSKState | None = None,
     C, _, T = x.shape
     if state is None:
         state = fsk_init_state(cfg, C, x.device)
-    nb = fsk_num_blocks_buffered(cfg, T)
+    nb = fsk_num_blocks_buffered(cfg, T) if buffered \
+        else fsk_num_blocks(cfg, T)
     if nb == 0:
         empty = torch.zeros((C, 0), dtype=torch.float32, device=x.device)
         return empty, empty.to(torch.uint8), {}, state
     if x.device.type == "cpu":
-        state, outs = fsk_scan_ref(cfg, x, state, nb, probe)
+        state, outs = fsk_scan_ref(cfg, x, state, nb, probe, buffered)
     else:
-        state, outs = fsk_scan(cfg, x.contiguous(), state, nb, probe)
+        state, outs = fsk_scan(cfg, x.contiguous(), state, nb, probe,
+                               buffered)
     soft, bits = outs.pop("soft"), outs.pop("bits")
     if squeeze:
         soft, bits = soft[0], bits[0]

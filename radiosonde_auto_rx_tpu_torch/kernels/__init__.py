@@ -46,7 +46,7 @@ SIGNATURES = {
     # C, nmem, ndft, nf, device, stream
     "rsx_freq_est_sf": [_P, _P, _P, _P, _P, _F, _P, _P,
                         _I, _I, _I, _I, _I, _P],
-    # pointers [23], ints [33], floats [4] (host arrays in the order of
+    # pointers [23], ints [34], floats [4] (host arrays in the order of
     # demod/fsk.py's SCAN_POINTERS, SCAN_INTS, SCAN_FLOATS), device, stream
     "rsx_fsk_scan": [_P, _P, _P, _I, _P],
     # x, s_outer, s_seg, s_plane, nseg, rows, win, tw, out, n, shift,
@@ -57,7 +57,10 @@ SIGNATURES = {
     "rsx_error_string": [_I],
 }
 
-launches = {"freq_est_sf": 0, "fft_abs2": 0, "fft": 0, "fsk_scan": 0}
+# "fsk_scan" counts both scan modes; "fsk_scan_unbuffered" the
+# unbuffered one again
+launches = {"freq_est_sf": 0, "fft_abs2": 0, "fft": 0, "fsk_scan": 0,
+            "fsk_scan_unbuffered": 0}
 build_log = {}                 # "ptxas": nvcc's -Xptxas -v report
 
 _lock = threading.Lock()

@@ -99,7 +99,5 @@ def demod_chain(name: str, fs_ch: int):
 
 
 # ROADMAP.md items that port what the slices so far leave out
-TODO_POOL = "the frame-plane worker pool (ROADMAP.md queue 1: " \
-    "frame-plane pool)"
 TODO_SPLIT = "the split analyze/confirm/route dispatch (ROADMAP.md " \
     "queue 1: multi-device)"

@@ -110,6 +110,7 @@ class FramePlane:
             p.start()
             self._inqs.append(q)
             self._procs.append(p)
+        log.info("frame plane: %d decoder workers started", self.workers)
 
     # ------------------------------------------------------------------ #
 

@@ -27,16 +27,21 @@ wide scan of the candidates the PSD width gate flags
 step like any other type; the Weathex chains are extracted per task at
 their own rate from the retained wideband block (``decode_channels``).
 
+Frame decoding runs in the frame-plane worker pool
+(``frame_plane_workers``, -1 = sized from the CPU count, as in the
+reference; 0 = inline): the workers own each task's decoder state, the
+main process keeps the telemetry tail, in ticket order.
+
 The scan/task policy is a copy of the reference's, with the same
 semantics; the frame decoders, telemetry filter and config are the
-port's copies of the reference's host modules.  Paths not ported yet
-raise ``NotImplementedError`` naming the ROADMAP.md item that ports
-them: the split dispatch and the frame-plane worker pool (the frame
-plane runs inline, ``frame_plane_workers=0``).
+port's copies of the reference's host modules.  The split dispatch is
+not ported yet and raises ``NotImplementedError`` naming the ROADMAP.md
+item that ports it.
 """
 
 import dataclasses
 import logging
+import os
 import time
 
 import numpy as np
@@ -56,8 +61,8 @@ from radiosonde_auto_rx_tpu_torch.ops.resample import resample_planes
 from radiosonde_auto_rx_tpu_torch.parallel.station_step import StationStep
 from radiosonde_auto_rx_tpu_torch.station import gps_ephem
 from radiosonde_auto_rx_tpu_torch.station.chains import (
-    CHAIN_TABLE, DRIFT_MIN_HZ, MODEL_NAME, RECENTER_MIN_HZ, TODO_POOL,
-    TODO_SPLIT, WIDE_SCAN_FS, WIDE_SCAN_WIN_HZ, WIDE_WIDTH_HZ, demod_chain)
+    CHAIN_TABLE, DRIFT_MIN_HZ, MODEL_NAME, RECENTER_MIN_HZ, TODO_SPLIT,
+    WIDE_SCAN_FS, WIDE_SCAN_WIN_HZ, WIDE_WIDTH_HZ, demod_chain)
 from radiosonde_auto_rx_tpu_torch.station.config import default_config
 from radiosonde_auto_rx_tpu_torch.station.frame_plane import FramePlane
 from radiosonde_auto_rx_tpu_torch.station.telemetry import (
@@ -107,11 +112,7 @@ class Station:
     def __init__(self, config: dict | None = None, exporters=None,
                  center_freq_hz: float = 402.5e6, *, device):
         self.device = torch.device(device)
-        # the worker pool is not ported: the port decodes inline
-        self.config = {**default_config(), "frame_plane_workers": 0,
-                       **(config or {})}
-        if int(self.config["frame_plane_workers"]) != 0:
-            raise NotImplementedError(TODO_POOL)
+        self.config = {**default_config(), **(config or {})}
         self.exporters = exporters or []
         self.center_freq = center_freq_hz
         self.fs_wide = int(self.config["capture_rate"])
@@ -120,7 +121,12 @@ class Station:
         self._wide = None            # built on the first >1 GHz capture
         self._steps = {}             # (n_chan, fs_ch) -> StationStep
         self.rt_filter = RealtimeVelocityFilter(self.config["max_velocity"])
-        self.frame_plane = FramePlane(0)
+        # parallel host frame plane: decoder worker pool (0 = inline,
+        # -1 = auto-size; workers spawn lazily on first decode)
+        n_workers = int(self.config.get("frame_plane_workers", -1))
+        if n_workers < 0:
+            n_workers = min(4, max(1, (os.cpu_count() or 2) - 1))
+        self.frame_plane = FramePlane(n_workers)
         # task state (reference auto_rx.py task_list / temporary_block_list)
         self.active = {}             # freq_hz (int) -> dict(type, decoder, last_ok)
         self.temporary_blocks = {}   # freq_hz -> unblock time
@@ -864,6 +870,7 @@ class Station:
         work)."""
         out = []
         cache = {}
+        meta = {}                    # pool ticket -> telemetry-tail args
         for name, j, cid in fused_items:
             if name not in cache:
                 soft, bits, stats = fused[name]
@@ -889,6 +896,17 @@ class Station:
             snr = None if eb is None else float(eb[j].max())
             fr = None if resid is None else resid[j]
             fd = self._f_demod_of(ci, fz, ext=ext_cid.get(cid, 0.0))
+            if self.frame_plane.workers > 0:
+                # the worker owns this task's decoder state: an inline
+                # decode here would build a second decoder whose state
+                # diverges from the worker's
+                model_name = MODEL_NAME.get(name, name)
+                ticket = self.frame_plane.decode(
+                    fz, model_name,
+                    self._decoder_kwargs(name, model_name), bits,
+                    None if soft is None else -soft)
+                meta[ticket] = (name, fz, snr, None, fr, fd)
+                continue
             try:
                 out.extend(self._decode_frames(
                     fz, name, bits, soft, snr, None,
@@ -896,6 +914,8 @@ class Station:
             except Exception:
                 log.exception("decode failed on %.3f MHz (%s)",
                               fz / 1e6, name)
+        if meta:
+            out.extend(self._pooled_tail(meta))
         return out
 
     def _process_collision(self, prof, planes, f_abs: float,
@@ -1096,6 +1116,10 @@ class Station:
         ebno = np.atleast_2d(stats["ebno_db"]) if "ebno_db" in stats \
             else None
         resid = self._freq_residuals(stats, chain, len(items))
+        if self.frame_plane.workers > 0:
+            return self._decode_frames_pooled(items, name, bits_b, soft_b,
+                                              ebno, chan_map, resid,
+                                              wide_mode)
         for j, (ci, det) in enumerate(items):
             real_ci = chan_map[ci] if chan_map else ci
             fz = self.freq_of_channel(real_ci)
@@ -1153,6 +1177,54 @@ class Station:
                     np.float32(cen[j] * good).sum() /
                     max(float(good.sum()), 1.0), -2500.0, 2500.0))
         return resid
+
+    def _decode_frames_pooled(self, items, name, bits_b, soft_b, ebno,
+                              chan_map, resid=None,
+                              wide_mode=False) -> list:
+        """Fan this type's channels out to the frame-plane workers, then
+        run the tail (``_pooled_tail``)."""
+        model_name = MODEL_NAME.get(name, name)
+        meta = {}
+        for j, (ci, det) in enumerate(items):
+            real_ci = chan_map[ci] if chan_map else ci
+            fz = self.freq_of_channel(real_ci)
+            soft = None if soft_b is None else -soft_b[j]
+            ticket = self.frame_plane.decode(
+                fz, model_name, self._decoder_kwargs(name, model_name),
+                bits_b[j], soft)
+            meta[ticket] = (name, fz,
+                            None if ebno is None else float(ebno[j].max()),
+                            det, resid[j] if resid is not None else None,
+                            self._f_demod_of(real_ci, fz, wide_mode))
+        return self._pooled_tail(meta)
+
+    def _pooled_tail(self, meta) -> list:
+        """Gather the frame-plane workers' results and run the light
+        main-process tail (enrich/filter/export) in ticket order, so the
+        output order matches the inline path.  ``meta`` maps a ticket to
+        ``(name, fz, snr_db, det, f_resid, f_demod)``."""
+        results = self.frame_plane.gather()
+        out = []
+        for ticket in sorted(meta):
+            name, fz, snr_db, det, f_resid, f_demod = meta[ticket]
+            state = self.active.get(fz)
+            if state is None or state["type"] != name:
+                # a fresh task starts its rx_timeout clock now: a type
+                # that needs several blocks to confirm a serial (DFM)
+                # must not be reaped before its first accepted frame
+                state = dict(type=name, decoder=None,
+                             last_ok=time.time())
+                self.active[fz] = state
+            try:
+                out.extend(self._post_frames(fz, state,
+                                             results.get(ticket, []),
+                                             snr_db, det, f_resid,
+                                             f_demod))
+            except Exception:
+                # one bad telemetry dict must not kill the capture loop
+                log.exception("telemetry tail failed on %.3f MHz (%s)",
+                              fz / 1e6, name)
+        return out
 
     def _decoder_kwargs(self, name, model_name) -> dict:
         """Constructor args for a type's frame decoder."""

@@ -1,4 +1,4 @@
-// Runs the buffered FSK scan of csrc/fsk_block.cuh (scan_channel, the body
+// Runs the FSK scan of csrc/fsk_block.cuh (scan_channel, the body
 // of csrc/fsk_scan.cu's kernel) on the CPU: every channel a block of 256
 // host threads (see cuda_runtime.h beside this file).
 //
@@ -9,7 +9,8 @@
 // int64 byte count (0: NULL) and the bytes; int32 count and the ints;
 // int32 count and the floats.  The output slots come zero-filled.  OUT
 // gets every pointer slot back in the same form.  STAGES: window buffers
-// in shared memory, 1 or 2 (the kernel takes 2 where they fit).  Shared
+// in shared memory, 1 or 2 (the kernel takes 2 where they fit; the
+// unbuffered scan takes 1).  Shared
 // memory starts as NaN, so a read before a write shows in the outputs.
 #include "cuda_runtime.h"
 
@@ -77,6 +78,7 @@ int main(int argc, char** argv) {
   ScanArgs a = scan_args(ptrs.data(), geo.data(), fgeo.data());
   a.stages = std::atoi(argv[3]);
   if (a.stages != 1 && a.stages != 2) return 2;
+  if (a.unbuffered && a.stages != 1) return 2;   // as the C entry
   const int key = a.ndft * 10 + a.m;
   switch (key) {
     case 642: run<6, 2>(a); break;

@@ -358,3 +358,105 @@ def test_detecting_station_cuda_equals_cpu(dev):
         assert cs.same_tasks(t_g, t_c)
     got = sorted(map(cs._key, gpu[0][1]))
     assert got and got == sorted(map(cs._key, cpu[0][1]))
+
+
+@pytest.mark.parametrize("c", [1, 2])
+@pytest.mark.parametrize("name", ["RS41", "M10", "DFM", "MTS01", "RS92NGP",
+                                  "FSK4"])
+def test_fsk_scan_unbuffered_matches_twin(dev, name, c):
+    """The unbuffered mode (the demod CLI's: each window at
+    [ptr - nmem, ptr)) against ``fsk_scan_ref(buffered=False)`` run on a
+    CPU copy: from the initial state with probe outputs (one launch,
+    counted in both counters), then with window starts clamped at both
+    ends (channel 0's pointer at 0, the last's past the input)."""
+    cfg = cs.cfg_of(name)
+    t = cfg.nmem + 8 * cfg.block_advance_max
+    x = torch.from_numpy(cs.fsk_signal(cfg, c, t, seed=c))
+    nb = fsk.fsk_num_blocks(cfg, t)
+    st0 = fsk.fsk_init_state(cfg, c, "cpu")
+    before = dict(kernels.launches)
+    got = fsk.fsk_scan(cfg, x.to(dev), fsk.fsk_init_state(cfg, c, dev), nb,
+                       probe=True, buffered=False)
+    assert kernels.launches["fsk_scan"] == before["fsk_scan"] + 1
+    assert kernels.launches["fsk_scan_unbuffered"] == \
+        before["fsk_scan_unbuffered"] + 1
+    cs.scan_diff(cs._on_cpu(got),
+                 fsk.fsk_scan_ref(cfg, x, st0, nb, probe=True,
+                                  buffered=False), name)
+    st0["ptr"][0] = 0
+    st0["ptr"][-1] = t + cfg.n
+    got = fsk.fsk_scan(cfg, x.to(dev), {k: v.to(dev) for k, v in
+                                        st0.items()}, nb, buffered=False)
+    cs.scan_diff(cs._on_cpu(got),
+                 fsk.fsk_scan_ref(cfg, x, st0, nb, buffered=False), name)
+
+
+def test_unbuffered_stream_launches_once(dev, monkeypatch):
+    """``fsk_demod_stream(buffered=False)`` on a CUDA tensor is one
+    unbuffered scan launch and never the twin."""
+    def refuse(*a, **k):
+        raise AssertionError("the twin was called on a CUDA tensor")
+    monkeypatch.setattr(fsk, "fsk_scan_ref", refuse)
+    cfg = cs.cfg_of("RS41")
+    x = torch.from_numpy(cs.fsk_signal(cfg, 2, cfg.fs, seed=4)).to(dev)
+    before = dict(kernels.launches)
+    soft, bits, stats, state = fsk.fsk_demod_stream(cfg, x, dev,
+                                                    buffered=False)
+    nb = fsk.fsk_num_blocks(cfg, cfg.fs)
+    assert soft.shape == bits.shape == (2, nb * cfg.nsym)
+    assert kernels.launches["fsk_scan_unbuffered"] == \
+        before["fsk_scan_unbuffered"] + 1
+    assert kernels.launches["fsk_scan"] == before["fsk_scan"] + 1
+
+
+def test_demod_cli_on_the_card_equals_cpu(dev):
+    """``demod.cli.run`` on an RS41 stream of test frames: the same hard
+    bits on the card as on the CPU, one unbuffered launch a chunk."""
+    import io
+    from radiosonde_auto_rx_tpu_torch.demod import cli
+    from radiosonde_auto_rx_tpu_torch.demod.modulate import (add_awgn,
+                                                             gfsk_mod)
+    tx = np.tile(cli.test_frame_bits(), 60)
+    iq = add_awgn(gfsk_mod(tx, 48000, 4800, 2, 0.0, 5000), 14.0, 48000,
+                  4800, rng=np.random.default_rng(3))
+    wire = np.empty(2 * len(iq), np.int16)
+    wire[0::2] = np.clip(iq.real * 16384, -32767, 32767)
+    wire[1::2] = np.clip(iq.imag * 16384, -32767, 32767)
+    out = {}
+    for d in ("cuda", "cpu"):
+        o = io.BytesIO()
+        kernels.reset_launches()
+        rc = cli.run(cli.parse_args(
+            ["--device", d, "-p", "5", "--nsym", "300", "-b", "-5000", "-u",
+             "5000", "--mask", "5000", "--hardout", "2", "48000", "4800",
+             "-", "-"]), stdin=io.BytesIO(wire.tobytes()), stdout=o,
+            stderr=io.StringIO())
+        out[d] = (rc, o.getvalue(), dict(kernels.launches))
+    assert out["cuda"][0] == out["cpu"][0] == 0
+    assert out["cuda"][1] and out["cuda"][1] == out["cpu"][1]
+    n = out["cuda"][2]["fsk_scan_unbuffered"]
+    assert n > 1 and out["cuda"][2]["fsk_scan"] == n
+    assert not any(out["cpu"][2].values())
+
+
+def test_station_cli_replay_on_the_card_equals_cpu(dev, tmp_path):
+    """``station.main.run_station`` replaying a cs16 capture (8 channels,
+    the three sondes, no task, the pool at its default) writes the same
+    per-sonde log rows on the card as on the CPU."""
+    from radiosonde_auto_rx_tpu_torch.station import main as cli
+    from radiosonde_auto_rx_tpu_torch.station.config import default_config
+    n, fs = 8, 384_000
+    cap = tmp_path / "cap.cs16"
+    cs.write_cs16(cap, cs.synth_stream(n, fs, 4))
+    rows = {}
+    for d in ("cuda", "cpu"):
+        cfg = {**default_config(), **cs.STATION_CFG, "capture_rate": fs,
+               "num_channels": n, "frame_plane_workers": -1,
+               "sondehub_enabled": False}
+        args = cli.parse_args(["--device", d, "--replay", str(cap),
+                               "--no-web", "--center",
+                               str(cs.CENTER / 1e6), "--log-dir",
+                               str(tmp_path / d)])
+        assert cli.run_station(args, cfg) == cli.EXIT_OK
+        rows[d] = cs.log_rows(tmp_path / d)
+    assert len(rows["cuda"]) == 3 and rows["cuda"] == rows["cpu"]

@@ -1,5 +1,5 @@
-"""Port parity: buffered FSK demod (radiosonde_auto_rx_tpu_torch.demod.fsk)
-against the JAX reference on the CPU.
+"""Port parity: the FSK demod (radiosonde_auto_rx_tpu_torch.demod.fsk),
+buffered and unbuffered scans, against the JAX reference on the CPU.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: hard bits and tone estimates (argmax picks) must be equal on
@@ -174,11 +174,39 @@ def test_state_roundtrip_continues_stream():
     np.testing.assert_array_equal(b_p.numpy(), np.asarray(b_r))
 
 
-def test_unbuffered_scan_not_ported():
-    with pytest.raises(NotImplementedError, match="CLI, sources and tools"):
-        port.fsk_demod_stream(port.FSKConfig(**RS41),
-                              np.zeros((1, 2, 9000), np.float32), CPU,
-                              buffered=False)
+@pytest.mark.parametrize("name,kw,n_bits,noisy", [
+    ("rs41_mask", RS41, 6000, True),
+    ("m10_odd_n", M10, 700, False),
+    ("dfm_50k", DFM, 1300, True),
+])
+def test_unbuffered_scan_not_ported(name, kw, n_bits, noisy):
+    """The unbuffered scan (``buffered=False``, the reference's
+    ``_fsk_demod_scan``) against the reference's, from a fresh state and
+    again from the carried one over the same input: the pointer then runs
+    past the input's end, so the later window starts are clamped into
+    [0, T - nmem]."""
+    iq = _iq(kw, seed=13, n_bits=n_bits, c=2, noisy=noisy)
+    s_r, b_r, st_r, state_r = ref.fsk_demod_stream(
+        ref.FSKConfig(**kw), iq, buffered=False)
+    s_p, b_p, st_p, state_p = port.fsk_demod_stream(
+        port.FSKConfig(**kw), iq, CPU, buffered=False)
+    assert b_p.shape[1] == port.fsk_num_blocks(
+        port.FSKConfig(**kw), iq.shape[-1]) * kw["nsym"]
+    _assert_close((np.asarray(s_r), np.asarray(b_r),
+                   {k: np.asarray(v) for k, v in st_r.items()},
+                   {k: np.asarray(v) for k, v in state_r.items()}),
+                  (s_p.numpy(), b_p.numpy(),
+                   {k: v.numpy() for k, v in st_p.items()},
+                   port.state_to_numpy(state_p)))
+    _, b_r2, _, state_r2 = ref.fsk_demod_stream(
+        ref.FSKConfig(**kw), iq, state=state_r, buffered=False)
+    _, b_p2, _, state_p2 = port.fsk_demod_stream(
+        port.FSKConfig(**kw), iq, CPU, state=state_p, buffered=False)
+    np.testing.assert_array_equal(b_p2.numpy(), np.asarray(b_r2))
+    np.testing.assert_array_equal(state_p2["ptr"].numpy(),
+                                  np.asarray(state_r2["ptr"]))
+    # the second call's later windows started past T - nmem: clamped
+    assert (state_p2["ptr"].numpy() > iq.shape[-1]).all()
 
 
 def test_reference_planes_accepted():

@@ -1,5 +1,7 @@
-"""The buffered-scan kernel's source (``csrc/fsk_block.cuh``, the body of
-``csrc/fsk_scan.cu``) on the CPU, against the plain scan ``fsk_scan_ref``.
+"""The scan kernel's source (``csrc/fsk_block.cuh``, the body of
+``csrc/fsk_scan.cu``) on the CPU, against the plain scan ``fsk_scan_ref``,
+in its buffered mode and its unbuffered one (the demod CLI's: each
+window at ``[ptr - nmem, ptr)``, clamped into ``[0, T - nmem]``).
 
 A CUDA kernel has no CPU mode, so the header's device code is compiled
 with g++ against the stand-in ``tests/cuda_shim/cuda_runtime.h`` (every
@@ -67,12 +69,12 @@ def scan_host(tmp_path_factory):
 
 
 def _run_host(exe, tmp_path, cfg, x, state, nb, probe=False, stages=2,
-              smem=None):
+              smem=None, buffered=True):
     """The kernel source's scan on the CPU; returns (state, outs) as
     ``fsk_scan`` does.  ``smem``: a list that gets the bytes of shared
     memory a block of the kernel takes with these operands."""
     ptrs, ints, floats, result = fsk._scan_operands(cfg, x, state, nb,
-                                                    probe)
+                                                    probe, buffered)
     blob = [struct.pack("<i", len(ptrs))]
     for t in ptrs:
         raw = b"" if t is None else t.numpy().tobytes()
@@ -110,6 +112,49 @@ def test_kernel_source_matches_twin(scan_host, tmp_path, name, stages):
     for k, v in want[1].items():
         assert got[1][k].shape == v.shape and got[1][k].dtype == v.dtype, k
     cs.scan_diff(got, want, name)
+
+
+def _unbuffered_signal(name, c=2, blocks=3, seed=0):
+    cfg = cs.cfg_of(name)
+    t = cfg.nmem + blocks * cfg.block_advance_max + 3
+    x = torch.from_numpy(cs.fsk_signal(cfg, c, t, seed))
+    return cfg, x, fsk.fsk_num_blocks(cfg, t)
+
+
+@pytest.mark.parametrize("name", CHAINS)
+def test_kernel_source_unbuffered_matches_twin(scan_host, tmp_path, name):
+    """The unbuffered mode (each window at [ptr - nmem, ptr), one window
+    buffer, as the C entry launches it) against
+    ``fsk_scan_ref(buffered=False)``."""
+    cfg, x, nb = _unbuffered_signal(name, seed=len(name) + 1)
+    st0 = fsk.fsk_init_state(cfg, 2, CPU)
+    want = fsk.fsk_scan_ref(cfg, x, st0, nb, probe=True, buffered=False)
+    got = _run_host(scan_host, tmp_path, cfg, x, st0, nb, probe=True,
+                    stages=1, buffered=False)
+    assert int(want[0]["ptr"][0]) > cfg.nmem + (nb - 1) * cfg.n
+    cs.scan_diff(got, want, name)
+
+
+@pytest.mark.parametrize("name", ["RS41", "M10", "DFM"])
+def test_kernel_source_unbuffered_clamps_the_window(scan_host, tmp_path,
+                                                    name):
+    """Window starts outside [0, T - nmem] are clamped into it, as
+    ``jax.lax.dynamic_slice`` clamps them: channel 0 starts with its
+    pointer at 0 (start -nmem), channel 1 at T + n (every start past the
+    end); the twin's own state carried over the same input again."""
+    cfg, x, nb = _unbuffered_signal(name, seed=5)
+    T = x.shape[-1]
+    st0 = fsk.fsk_init_state(cfg, 2, CPU)
+    st0["ptr"] = torch.tensor([0, T + cfg.n], dtype=torch.int32)
+    cs.scan_diff(_run_host(scan_host, tmp_path, cfg, x, st0, nb, stages=1,
+                           buffered=False),
+                 fsk.fsk_scan_ref(cfg, x, st0, nb, buffered=False), name)
+    st1, _ = fsk.fsk_scan_ref(cfg, x, fsk.fsk_init_state(cfg, 2, CPU), nb,
+                              buffered=False)
+    assert (st1["ptr"] + (nb - 1) * cfg.n > T).all()
+    cs.scan_diff(_run_host(scan_host, tmp_path, cfg, x, st1, nb, stages=1,
+                           buffered=False),
+                 fsk.fsk_scan_ref(cfg, x, st1, nb, buffered=False), name)
 
 
 # the H100's shared memory a block may opt in to (cudaDevAttrMaxShared-
@@ -178,14 +223,14 @@ def test_kernel_source_two_calls_equal_one(scan_host, tmp_path):
 
 def test_scan_operands_match_the_c_entry():
     """The flat operand arrays have the C entry's lengths (fsk_block.cuh:
-    23 pointer slots, 21 ints and 12 mask offsets, 4 floats), the probe
-    slots are empty without probe, and the mask offsets are the twin's
-    summation order."""
+    23 pointer slots, 21 ints, 12 mask offsets and the mode, 4 floats),
+    the probe slots are empty without probe, and the mask offsets are the
+    twin's summation order."""
     cfg, x, nb = _signal("RS41", blocks=2)
     st0 = fsk.fsk_init_state(cfg, 2, CPU)
     ptrs, ints, floats, _ = fsk._scan_operands(cfg, x, st0, nb)
-    assert (len(ptrs), len(ints), len(floats)) == (23, 33, 4)
-    assert len(fsk.SCAN_POINTERS) == 23 and len(fsk.SCAN_INTS) == 33
+    assert (len(ptrs), len(ints), len(floats)) == (23, 34, 4)
+    assert len(fsk.SCAN_POINTERS) == 23 and len(fsk.SCAN_INTS) == 34
     probe = [fsk.SCAN_POINTERS.index(k)
              for k in ("probe_sf", "probe_timing", "probe_tmag")]
     assert [ptrs[i] for i in probe] == [None] * 3
@@ -193,6 +238,10 @@ def test_scan_operands_match_the_c_entry():
     offs, _ = fsk._mask_offsets(cfg)
     assert [geo[f"offs{i}"] for i in range(geo["n_offs"])] == list(offs)
     assert geo["n_blocks"] == nb and geo["ndft"] == cfg.ndft
+    assert geo["unbuffered"] == 0 and geo["slack"] == fsk.SLACK_TS * cfg.ts
+    geo = dict(zip(fsk.SCAN_INTS, fsk._scan_operands(
+        cfg, x, st0, nb, buffered=False)[1]))
+    assert geo["unbuffered"] == 1 and geo["slack"] == 0
 
 
 def test_scan_kernel_refuses_what_it_cannot_take():

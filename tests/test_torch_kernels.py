@@ -165,7 +165,7 @@ def test_wrappers_never_fall_back_off_cpu():
         port_fsk.fsk_demod_stream(port_fsk.FSKConfig(**RS41),
                                   torch.zeros(1, 2, 9000), meta)
     assert kernels.launches == {"freq_est_sf": 0, "fft_abs2": 0, "fft": 0,
-                                "fsk_scan": 0}
+                                "fsk_scan": 0, "fsk_scan_unbuffered": 0}
 
 
 def test_kernel_library_is_built_lazily():

@@ -16,7 +16,13 @@ channels at 768 kHz) over the three sondes and six carriers, where the
 detector's prescreen runs on the nine candidates, and one 2 s L-band
 block at 960 kHz (four 240 kHz channels) with an RS92-NGP.  They check the telemetry, the
 detections, that every frame decoder of the port's registry imported,
-and that no blocked module was loaded.  A static
+and that no blocked module was loaded.  Two more children run the
+command lines, ``python -m radiosonde_auto_rx_tpu_torch --device cpu``
+replaying a cs16 capture in scan mode (it finds and logs the RS41, its
+frames decoded by spawned pool workers) and the demod CLI, with
+``PYTHONPATH`` shadowing ``jax`` and ``radiosonde_auto_rx_tpu`` by
+packages that raise on import, so that the pool's workers, which inherit
+the environment, are blocked too.  A static
 check keeps ``import jax`` and imports of the JAX package out of the
 port's files and the smoke script.
 """
@@ -144,7 +150,8 @@ def test_slice_runs_without_jax():
         assert all(f > 0 for f in run["fused"])
         # CPU tensors take the plain twins: no kernel launches
         assert run["launches"] == {"freq_est_sf": 0, "fft_abs2": 0,
-                                   "fft": 0, "fsk_scan": 0}
+                                   "fft": 0, "fsk_scan": 0,
+                                   "fsk_scan_unbuffered": 0}
     # the task-less station found the three sondes itself
     assert out["False"]["detections"] == [3, 3]
     assert out["True"]["detections"] == [0, 0]
@@ -162,7 +169,8 @@ def test_remaining_paths_run_without_jax():
             v > 0 for v in run["seen"].values())
         assert run["tasks"] == ["IMET4", "RS41", "RS41", "WXR301"]
         assert run["launches"] == {"freq_est_sf": 0, "fft_abs2": 0,
-                                   "fft": 0, "fsk_scan": 0}
+                                   "fft": 0, "fsk_scan": 0,
+                                   "fsk_scan_unbuffered": 0}
     assert out["True"]["detections"] == 0
     assert out["False"]["detections"] >= 4
 
@@ -174,12 +182,81 @@ def test_sequential_and_lband_run_without_jax():
     assert len(out["seen"]) == 3 and all(v > 0 for v in out["seen"].values())
     assert out["detections"] == 3
     assert out["launches"] == {"freq_est_sf": 0, "fft_abs2": 0, "fft": 0,
-                               "fsk_scan": 0}
+                               "fsk_scan": 0, "fsk_scan_unbuffered": 0}
     # the prescreen ran once, on the first block's nine candidates, and
     # kept the three sondes
     assert [len(r) for r in out["screened"]] == [9]
     assert sum(v >= MARGIN for v in out["screened"][0]) == 3
     assert out["lband"] and {t[1] for t in out["lband"]} == {"R1234567"}
+
+
+def _shadowed(tmp_path):
+    """An environment whose PYTHONPATH puts packages named ``jax``,
+    ``jaxlib`` and ``radiosonde_auto_rx_tpu`` that raise on import ahead
+    of everything but the working directory (run from ``tmp_path``,
+    which holds nothing else)."""
+    import os
+    shadow = tmp_path / "shadow"
+    for name in ("jax", "jaxlib", "radiosonde_auto_rx_tpu"):
+        (shadow / name).mkdir(parents=True)
+        (shadow / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is blocked in this process')\n")
+    env = dict(os.environ, PYTHONPATH=f"{shadow}{os.pathsep}{ROOT}",
+               OMP_NUM_THREADS="1")
+    return env
+
+
+def test_station_cli_runs_without_jax(tmp_path):
+    from test_torch_cli import SCAN_CH, SCAN_FS, rs41_capture
+    run = tmp_path / "run"
+    run.mkdir()
+    env = _shadowed(tmp_path)
+    cap = run / "cap.cs16"
+    rs41_capture(cap, SCAN_FS, SCAN_CH * 48000, n_frames=6, seed=5)
+    cfg = run / "station.cfg"
+    cfg.write_text(f"[sdr]\ncapture_rate = {SCAN_FS}\nnum_channels = 8\n"
+                   "[filtering]\nsonde_time_threshold = 1000000\n")
+    res = subprocess.run(
+        [sys.executable, "-m", "radiosonde_auto_rx_tpu_torch", "--device",
+         "cpu", "-c", str(cfg), "--replay", str(cap), "--no-web",
+         "--log-dir", str(run / "log")],
+        capture_output=True, text=True, timeout=300, cwd=run, env=env)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "decoder workers started" in res.stderr
+    logs = list((run / "log").glob("*_C2468101_RS41_*_sonde.log"))
+    assert len(logs) == 1
+    assert len(logs[0].read_text().splitlines()) > 3
+    # the blocked packages really are blocked in that environment
+    probe = subprocess.run([sys.executable, "-c", "import jax"], cwd=run,
+                           env=env, capture_output=True, text=True)
+    assert probe.returncode != 0 and "blocked" in probe.stderr
+
+
+def test_demod_cli_runs_without_jax(tmp_path):
+    import numpy as np
+    from radiosonde_auto_rx_tpu_torch.demod.cli import test_frame_bits
+    from radiosonde_auto_rx_tpu_torch.demod.modulate import (add_awgn,
+                                                             gfsk_mod)
+    run = tmp_path / "run"
+    run.mkdir()
+    tx = np.tile(test_frame_bits(), 30)
+    iq = add_awgn(gfsk_mod(tx, 48000, 4800, 2, 0.0, 5000), 14.0, 48000,
+                  4800, rng=np.random.default_rng(2))
+    w = np.empty(2 * len(iq), np.int16)
+    w[0::2] = np.clip(iq.real * 16384, -32767, 32767)
+    w[1::2] = np.clip(iq.imag * 16384, -32767, 32767)
+    (run / "in.cs16").write_bytes(w.tobytes())
+    res = subprocess.run(
+        [sys.executable, "-m", "radiosonde_auto_rx_tpu_torch.demod.cli",
+         "--device", "cpu", "-p", "5", "-b", "-5000", "-u", "5000",
+         "--mask", "5000", "--testframes", "2", "48000", "4800", "in.cs16",
+         "out.f32"], capture_output=True, text=True, timeout=300, cwd=run,
+        env=_shadowed(tmp_path))
+    assert res.returncode == 0, res.stderr[-4000:]
+    lines = [ln for ln in res.stderr.splitlines() if "FSK BER" in ln]
+    assert len(lines) >= 15
+    assert float(lines[-1].split("FSK BER")[1].split(",")[0]) < 0.01
+    assert (run / "out.f32").stat().st_size > 4 * 0.9 * len(tx)
 
 
 def test_no_jax_import_in_port_sources():
