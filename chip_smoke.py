@@ -73,7 +73,14 @@ Phases, in order; any failure raises (non-zero exit, traceback):
 6. Time 12 steady blocks (scan and no-scan) on the card, check one scan
    launch a type group a block, then profile 4 more with torch.profiler:
    kernel launches, device busy time, launch API and demod host time
-   per block.
+   per block.  (b) The split dispatch (``fused_steady_step: false``,
+   inline): phase 4's blocks give the same telemetry as the fused
+   station, and steady blocks launch the scan once a type group a block
+   and K2 once a block (the PSD every block).  Then steady blocks with
+   manual tasks through new stations in turns (inline fused, (a) the
+   default configuration with the frame-plane pool, ``frame_plane_
+   workers`` -1, and the split dispatch; 12 blocks each): print each
+   row's median block wall.
 7. Detection: hold the CUDA detector (``StationStep.confirm`` +
    ``decide_confirmed`` on the three sondes' rows of the first block)
    against its CPU path; then drive a ``Station(device="cuda")`` with no
@@ -143,11 +150,29 @@ Phases, in order; any failure raises (non-zero exit, traceback):
    of RS41 test frames (``--testframes --hardout``) on the card and on
    the CPU: the same bits, one unbuffered scan launch a chunk; its real
    time factor.
+11. The quality tools.  (a) The PER gate on the card: each of the 16
+   types through ``tools.per_harness.run_point`` at the point
+   ``tests/test_per_gate.py`` gates (``docs/per_r5.csv``'s centered
+   ``tpu`` rows; 100 frames, seed 123, limit max(recorded + 0.20,
+   0.35)), then the +-20 kHz points of RS41, DFM and M10 (50 frames,
+   seed 321, limit max(recorded + 0.25, 0.45)), the frames' GPS time
+   pinned (``per_harness.pinned_gps_now_plus``); one scan launch a
+   point; each point also through the plain twin on the CPU, the card's
+   received frames within ``PER_TWIN_TOL`` of the point's frames of the
+   CPU's; print type, offset, Eb/N0, PER, recorded PER, limit, launches
+   and seconds.  (b) ``tools.profile_station`` at its bench geometry (10
+   captures of 2.4 M samples, 50 channels): the per-stage device ms,
+   every stage on the card, the PSD one K2 launch, the demod one scan
+   launch.  (c) ``utils.probe.trace`` around one steady block: the
+   Chrome trace names ``fsk_scan``.  (d) ``run_point("RS41", 18.0, 5)``
+   with the demod's probe outputs in the probe registry: the spectrum
+   [1, blocks, ndft] with the tones at +-2400 Hz.
 
 The second-to-last line is a JSON object of per-kernel results (times
 at the main path's shapes, bound, library-call time, the largest error
 of all the checks; launches: the scan's and K2's on the detection path
-(and by phase-8, phase-9 and phase-10 drive), the unbuffered scan's in
+(and by phase-8, phase-9 and phase-10 drive, phase 6's split dispatch
+and phase 11's tools), the unbuffered scan's in
 phase 10's demod CLI run, K1's and K3's in their own phases, through
 their entry points; every kernel also lists each shape timed),
 the last line ``{"ok": true, "device": {...}}``.
@@ -506,62 +531,6 @@ def drive_station(device, runs, n_chan: int, fs_wide: int,
 # ---------------------------------------------------------------------- #
 # kernels against their twins
 
-def _time_ms(fn, reps: int = 20, ahead: bool = True) -> float:
-    """Mean ms of ``fn`` between two CUDA events around ``reps`` calls,
-    after 3 warm-ups.  ``ahead``: the device first spins
-    (``torch.cuda._sleep``, ~6 ms at first), so the host has queued every
-    call before the first one starts and the events bracket device time
-    alone.  That is checked: if the spin had ended by the time the last
-    call was queued, the timing is taken again behind a spin four times
-    as long, and a host that never gets ahead is an error.  Without
-    ``ahead`` a call shorter than its wrapper's Python is timed at the
-    host's pace (the launch gap)."""
-    import torch
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    for spin in (10_000_000, 40_000_000, 160_000_000, 640_000_000):
-        torch.cuda.synchronize()
-        if ahead:
-            torch.cuda._sleep(spin)
-        start.record()
-        for _ in range(reps):
-            fn()
-        queued_ahead = not start.query()    # the card was still spinning
-        stop.record()
-        torch.cuda.synchronize()
-        if queued_ahead or not ahead:
-            return start.elapsed_time(stop) / reps
-    raise RuntimeError("the host never queued the timed calls ahead of "
-                       "the card")
-
-
-def _device_events(prof):
-    """The device activities (kernels, copies, fills) of a profile."""
-    from torch.autograd import DeviceType
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-
-
-def _device_busy_ms(fn, reps: int = 3) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls after a warm-up: the
-    sum of its device activities' spans under torch.profiler (one stream,
-    so they do not overlap)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.time_range.elapsed_us() for e in _device_events(prof))
-    if not busy:
-        raise RuntimeError("the profiler saw no device time")
-    return busy / 1e3 / reps
-
-
 def fft_flops(n: int) -> float:
     """Operations of one complex length-``n`` DFT done as an FFT, the
     least work of the function (5 N log2 N; K1's own O(N^2) DFT does
@@ -589,6 +558,7 @@ def k1_phase(dev):
     from radiosonde_auto_rx_tpu_torch import kernels
     from radiosonde_auto_rx_tpu_torch.demod.fsk import _consts
     from radiosonde_auto_rx_tpu_torch.ops import fsk_sf
+    from radiosonde_auto_rx_tpu_torch.tools.profile_station import device_ms
     cases = []
     for seed, (name, c) in enumerate(K1_SHAPES):
         cfg = cfg_of(name)
@@ -613,9 +583,9 @@ def k1_phase(dev):
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
         worst = max(worst, err)
-        ms = _time_ms(lambda: fsk_sf.freq_est_sf(*args))
-        call = _time_ms(lambda: fsk_sf.freq_est_sf(*args), ahead=False)
-        plain = _time_ms(lambda: fsk_sf.freq_est_sf_ref(*args))
+        ms = device_ms(lambda: fsk_sf.freq_est_sf(*args))
+        call = device_ms(lambda: fsk_sf.freq_est_sf(*args), ahead=False)
+        plain = device_ms(lambda: fsk_sf.freq_est_sf_ref(*args))
         nf, nd = cfg.numffts, cfg.ndft
         # per hop the windowed ndft-point DFT as an FFT (window, FFT), per
         # bin |X| and the weighted hop sum; the EMA
@@ -764,6 +734,8 @@ def check_scan(dev, name, cfg, c, seed=0, buffered=True):
     window starts are clamped)."""
     import torch
     from radiosonde_auto_rx_tpu_torch.demod import fsk
+    from radiosonde_auto_rx_tpu_torch.tools.profile_station import (
+        device_busy_ms, device_ms)
     cpu = torch.device("cpu")
     t = cfg.fs if buffered else cfg.nmem + CLI_CHUNK * cfg.block_advance_max
     x = torch.from_numpy(fsk_signal(cfg, c, t, seed)).to(dev)
@@ -797,15 +769,15 @@ def check_scan(dev, name, cfg, c, seed=0, buffered=True):
                                  fsk.fsk_scan_ref(cfg, x, st1, nb, **mode),
                                  f"{name} C={c}, carried state"))
     torch.cuda.synchronize()
-    ms = _time_ms(lambda: fsk.fsk_scan(cfg, x, st0, nb, **mode))
-    call = _time_ms(lambda: fsk.fsk_scan(cfg, x, st0, nb, **mode),
+    ms = device_ms(lambda: fsk.fsk_scan(cfg, x, st0, nb, **mode))
+    call = device_ms(lambda: fsk.fsk_scan(cfg, x, st0, nb, **mode),
                     ahead=False)
     # the twin's thousands of small launches fill the launch queue, so
     # it cannot be queued ahead of the card: its device time is the
     # profiler's sum of its kernels, beside its time at the host's pace
-    plain = _device_busy_ms(lambda: fsk.fsk_scan_ref(cfg, x, st0, nb,
+    plain = device_busy_ms(lambda: fsk.fsk_scan_ref(cfg, x, st0, nb,
                                                      **mode))
-    plain_call = _time_ms(lambda: fsk.fsk_scan_ref(cfg, x, st0, nb, **mode),
+    plain_call = device_ms(lambda: fsk.fsk_scan_ref(cfg, x, st0, nb, **mode),
                           reps=3, ahead=False)
     b_ms, b_by = scan_bound(cfg, c, nb, None if buffered else t)
     per_block = ms * 1e3 / nb
@@ -878,6 +850,8 @@ def profile_steady(st, blocks, n: int = 4):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from radiosonde_auto_rx_tpu_torch.tools.profile_station import \
+        device_events
     launch_names = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                     "cuLaunchKernel", "cuLaunchKernelEx")
     walls = []
@@ -889,7 +863,7 @@ def profile_steady(st, blocks, n: int = 4):
             st.process_captures([blocks[i % len(blocks)]])
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-    dev_us = sum(e.time_range.elapsed_us() for e in _device_events(prof))
+    dev_us = sum(e.time_range.elapsed_us() for e in device_events(prof))
     launch = [e for e in prof.events() if e.name in launch_names and
               e.device_type == DeviceType.CPU]
     return dict(blocks=n, wall_ms=sum(walls) / n,
@@ -904,6 +878,7 @@ def check_k2(dev, captures, seed=0):
     import torch
     from radiosonde_auto_rx_tpu_torch.detect.psd import _window_on
     from radiosonde_auto_rx_tpu_torch.ops import fft
+    from radiosonde_auto_rx_tpu_torch.tools.profile_station import device_ms
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(captures, 2, FS_WIDE, generator=g, device=dev)
     nfft, hop = 2048, 8192
@@ -916,12 +891,12 @@ def check_k2(dev, captures, seed=0):
     diff = (got - want).abs()
     err = float(diff.max())
     rel = float((diff / (want.abs() + want.mean(-1, keepdim=True))).max())
-    ms = _time_ms(lambda: fft.fft_abs2(view, win, True))
-    call = _time_ms(lambda: fft.fft_abs2(view, win, True), ahead=False)
-    plain = _time_ms(lambda: fft.fft_abs2_ref(view, win, True))
+    ms = device_ms(lambda: fft.fft_abs2(view, win, True))
+    call = device_ms(lambda: fft.fft_abs2(view, win, True), ahead=False)
+    plain = device_ms(lambda: fft.fft_abs2_ref(view, win, True))
     # the library call from the same planes and window: complex rows,
     # window, cuFFT, |.|^2, roll
-    lib = _time_ms(lambda: torch.roll(torch.fft.fft(
+    lib = device_ms(lambda: torch.roll(torch.fft.fft(
         torch.complex(view[:, 0], view[:, 1]) * win).abs() ** 2,
         nfft // 2, dims=-1))
     rows = captures * nseg
@@ -982,6 +957,7 @@ def k3_phase(dev):
     import torch
     from radiosonde_auto_rx_tpu_torch import kernels
     from radiosonde_auto_rx_tpu_torch.ops import fft
+    from radiosonde_auto_rx_tpu_torch.tools.profile_station import device_ms
     g = torch.Generator(device=dev).manual_seed(3)
     cases = []
     for n, b, method, _ in K3_SHAPES:
@@ -1010,11 +986,11 @@ def k3_phase(dev):
         err = float(diff.max())
         rel = float((diff / (mag + rms)).max())
         worst = max(worst, err)
-        ms = _time_ms(lambda: fft.fft(x, win, method))
-        call = _time_ms(lambda: fft.fft(x, win, method), ahead=False)
-        plain = _time_ms(lambda: fft.fft_ref(x, win))
+        ms = device_ms(lambda: fft.fft(x, win, method))
+        call = device_ms(lambda: fft.fft(x, win, method), ahead=False)
+        plain = device_ms(lambda: fft.fft_ref(x, win))
         # the library call from the same planes and window
-        lib = _time_ms(lambda: torch.fft.fft(
+        lib = device_ms(lambda: torch.fft.fft(
             torch.complex(x[:, 0], x[:, 1]) * win))
         # per row: window, FFT (the same function for either method)
         b_ms, b_by = bound(b * (fft_flops(n) + 2.0 * n),
@@ -1188,6 +1164,70 @@ def paths_phase(dev, card):
     return out
 
 
+def steady_row(dev, blocks, n: int, **config):
+    """``n`` + 1 steady 1 s blocks through a new station with the sondes
+    as manual tasks and ``config``: (the block wall ms, the first block
+    excluded (it spawns the pool where there is one), the kernel
+    launches and the demod calls over all of them)."""
+    with DemodCalls() as calls:
+        (res,), launches = drive_station(
+            dev, [[blocks[i % len(blocks)] for i in range(n + 1)]], N_CHAN,
+            FS_WIDE, **config)
+    res[0].close()
+    return [ms for _, ms in res[2][1:]], launches, calls.calls
+
+
+def split_rows(dev, runs, fused_results, blocks, groups, card):
+    """Phase 6's rows: the inline fused block, (a) the default
+    configuration (the frame-plane pool, ``frame_plane_workers`` -1) and
+    (b) the split dispatch (``fused_steady_step: false``, inline), timed
+    in turns (inline, default, split, split, default, inline; 6 blocks
+    each after a first), since the host's pace drifts within a call.
+    The split station must decode phase 4's blocks as the fused one did,
+    launch the scan once a type group a block and K2 once a block (the
+    PSD every block)."""
+    with DemodCalls() as calls:
+        s_results, s_launches = drive_station(dev, runs, N_CHAN, FS_WIDE,
+                                              fused_steady_step=False)
+    for (st, telems, _), (_, telems_f, _) in zip(s_results, fused_results):
+        if sorted(map(_key, telems)) != sorted(map(_key, telems_f)):
+            raise AssertionError("phase 6 (b): the split and the fused "
+                                 "stations decoded different telemetry")
+        if st.stats.get("fused_channels", 0):
+            raise AssertionError("phase 6 (b): the split station served "
+                                 "channels from the fused step")
+    check_path_launches(s_launches, calls.calls, "phase 6 (b) split")
+    configs = {"inline": {}, "default": {"frame_plane_workers": -1},
+               "split": {"fused_steady_step": False}}
+    walls, n = {}, 6
+    for name in ("inline", "default", "split", "split", "default",
+                 "inline"):
+        ms, launches, n_calls = steady_row(dev, blocks, n, **configs[name])
+        walls.setdefault(name, []).extend(ms)
+        if name != "split":
+            continue
+        split_launches = launches
+        if launches["fsk_scan"] != groups * (n + 1) or \
+                launches["fft_abs2"] != n + 1 or n_calls != groups * (n + 1):
+            raise AssertionError(f"phase 6 (b): {launches} over {n + 1} "
+                                 f"blocks of {groups} type groups "
+                                 f"({n_calls} demod calls)")
+    out = {k: statistics.median(v) for k, v in walls.items()}
+    out.update(launches=split_launches, blocks=n + 1,
+               path_launches=s_launches)
+    print(f"phase 6 (b) split dispatch: the same telemetry as the fused "
+          f"station on {[len(r) for r in runs]} blocks "
+          f"({[len(t) for _, t, _ in s_results]} frames); one scan launch "
+          f"a type group and one K2 launch a block ({split_launches} over "
+          f"{n + 1} blocks, {groups} type groups)")
+    print(f"phase 6 (a)/(b) steady 1 s block with manual tasks, in turns, "
+          f"median of {2 * n} blocks each: inline fused "
+          f"{out['inline']:.2f} ms, default configuration (pool, "
+          f"{os.cpu_count()} cores) {out['default']:.2f} ms, split "
+          f"dispatch {out['split']:.2f} ms ({card})")
+    return out
+
+
 # ---------------------------------------------------------------------- #
 # phase 9: the sequential station, with the prescreen, and L-band
 
@@ -1293,6 +1333,8 @@ def seq_phase(dev, card):
     from radiosonde_auto_rx_tpu_torch import kernels
     from radiosonde_auto_rx_tpu_torch.detect.prescreen import (MARGIN,
                                                                Prescreen)
+    from radiosonde_auto_rx_tpu_torch.tools.profile_station import \
+        device_busy_ms
     cpu = torch.device("cpu")
     stream = synth_stream(N_CHAN, FS_WIDE, SECONDS, carriers=carriers_for)
     runs = [split_blocks(stream, FS_WIDE, 1), split_blocks(stream, FS_WIDE, 2)]
@@ -1363,8 +1405,8 @@ def seq_phase(dev, card):
     # same nine rows
     x9 = screens[0][0]
     det = res[0][0].detector
-    pre_ms = _device_busy_ms(lambda: Prescreen.scores(det.prescreen, x9))
-    full_ms = _device_busy_ms(lambda: det._detect_full(x9, 1))
+    pre_ms = device_busy_ms(lambda: Prescreen.scores(det.prescreen, x9))
+    full_ms = device_busy_ms(lambda: det._detect_full(x9, 1))
     # a sequential 1 s block with the three sondes as tasks (the six
     # carriers go through the full detector, unscreened: 6 < 8)
     st = res[0][0]
@@ -1727,6 +1769,199 @@ def cli_phase(dev, card):
     return out
 
 
+# phase 11: the PER gate's off-grid points run on the card (the others
+# run in the CPU tests)
+OFFGRID_ON_CARD = ("RS41", "DFM", "M10")
+
+
+# phase 11: the card's received frames against the CPU path's on the same
+# IQ, at most this share of a point's frames apart (the frames received by
+# one and not the other; a bit decided near zero soft decision at the
+# cliff may part the two summation orders)
+PER_TWIN_TOL = 0.03
+
+
+def per_gate_points():
+    """Phase 11's PER gate points from ``docs/per_r5.csv``'s recorded
+    ``tpu`` rows, as ``tests/test_per_gate.py`` takes them: (type, f_off,
+    Eb/N0, frames, seed, recorded PER, limit).  Each type at its gate
+    point on the centered rows (100 frames, seed 123, limit
+    max(recorded + 0.20, 0.35)), then the +-20 kHz points of
+    ``OFFGRID_ON_CARD`` (50 frames, seed 321, max(recorded + 0.25,
+    0.45))."""
+    import csv
+    from radiosonde_auto_rx_tpu_torch.tools.per_harness import CASES
+    from radiosonde_auto_rx_tpu_torch.tools.per_offgrid import gate_point
+    with open(Path(__file__).resolve().parent / "docs" / "per_r5.csv") as f:
+        rows = [r for r in csv.DictReader(f) if r["chain"] == "tpu"]
+    centered = [r for r in rows if float(r.get("f_off") or 0.0) == 0.0]
+    points = []
+    for typ in sorted(CASES):
+        e = gate_point(centered, typ)
+        rec = next(float(r["per"]) for r in centered
+                   if r["type"] == typ and float(r["ebno_db"]) == e)
+        points.append((typ, 0.0, e, 100, 123, rec, max(rec + 0.20, 0.35)))
+    for r in rows:
+        f_off = float(r.get("f_off") or 0.0)
+        if f_off and r["type"] in OFFGRID_ON_CARD:
+            rec = float(r["per"])
+            points.append((r["type"], f_off, float(r["ebno_db"]), 50, 321,
+                           rec, max(rec + 0.25, 0.45)))
+    return points
+
+
+def per_frames(typ, ebno, n, seed, f_off, device):
+    """``tools.per_harness.run_point`` of one PER point on ``device``,
+    and the set of frame identities its decoder returned."""
+    from radiosonde_auto_rx_tpu_torch.tools import per_harness
+    build, got = per_harness.CASES[typ], set()
+
+    def recording(n_frames, rng, workdir):
+        case = build(n_frames, rng, workdir)
+        decode = case.decode
+
+        def recorded(bits, soft):
+            telems = decode(bits, soft)
+            got.update(t.get("frame") for t in telems)
+            return telems
+        case.decode = recorded
+        return case
+    per_harness.CASES[typ] = recording
+    try:
+        row, = per_harness.run_point(typ, ebno, n, seed, f_off=f_off,
+                                     device=device)
+    finally:
+        per_harness.CASES[typ] = build
+    return row, got
+
+
+def tools_phase(dev, card, blocks):
+    """Phase 11: the quality tools on the card.  (a) The PER gate: each
+    point of ``per_gate_points`` through ``tools.per_harness.run_point``
+    on the card, one scan launch a point (counters zeroed just before,
+    read just after), each PER within its limit, and the frames it
+    received within ``PER_TWIN_TOL`` of the CPU path's on the same IQ;
+    (b)
+    ``tools.profile_station`` at its geometry, every stage's result on
+    the card, the PSD one K2 launch and the demod one scan launch; (c)
+    ``utils.probe.trace`` around one steady block: a Chrome trace that
+    names the scan kernel; (d) ``run_point("RS41", 18.0, 5)`` with its
+    demod's probe outputs fed to ``probe.capture_demod_internals``: the
+    spectrum [1, blocks, ndft] with the tones at +-2400 Hz."""
+    import torch
+    from radiosonde_auto_rx_tpu_torch import kernels
+    from radiosonde_auto_rx_tpu_torch.tools import (per_harness,
+                                                    profile_station)
+    from radiosonde_auto_rx_tpu_torch.utils import probe
+    t_phase = time.perf_counter()
+    out = dict(per=[])
+    points = per_gate_points()
+    clock = per_harness._gps_now_plus
+    per_harness._gps_now_plus = per_harness.pinned_gps_now_plus
+    try:
+        for typ, f_off, e, n, seed, rec, limit in points:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            row, got = per_frames(typ, e, n, seed, f_off, dev)
+            secs = time.perf_counter() - t0
+            launches = dict(kernels.launches)
+            if launches["fsk_scan"] != 1 or launches["freq_est_sf"]:
+                raise AssertionError(f"phase 11 (a) {typ} f_off {f_off}: "
+                                     f"launches {launches}")
+            # the same point through the plain twin on the CPU
+            cpu, want = per_frames(typ, e, n, seed, f_off,
+                                   torch.device("cpu"))
+            apart = len(got ^ want)
+            out["per"].append(dict(
+                type=typ, f_off=f_off, ebno_db=e, frames=n, per=row["per"],
+                cpu_per=cpu["per"], frames_apart=apart, recorded=rec,
+                limit=limit, fsk_scan=launches["fsk_scan"], seconds=secs))
+            print(f"phase 11 (a) PER gate {typ:8s} f_off "
+                  f"{f_off / 1e3:+5.0f} kHz at {e:4.1f} dB: PER "
+                  f"{row['per']:.3f} ({n} frames; the CPU's "
+                  f"{cpu['per']:.3f}, {apart} frames apart), recorded "
+                  f"{rec:.4f}, limit {limit:.4f}; fsk_scan launches "
+                  f"{launches['fsk_scan']}; {secs:.2f} s on the card",
+                  flush=True)
+            if row["per"] > limit:
+                raise AssertionError(f"phase 11 (a) {typ} f_off {f_off}: "
+                                     f"PER {row['per']} over {limit}")
+            if apart > PER_TWIN_TOL * n:
+                raise AssertionError(
+                    f"phase 11 (a) {typ} f_off {f_off}: the card received "
+                    f"{sorted(got - want, key=str)} and not "
+                    f"{sorted(want - got, key=str)} of the CPU path's frames")
+    finally:
+        per_harness._gps_now_plus = clock
+    same = sum(not p["frames_apart"] for p in out["per"])
+    print(f"phase 11 (a) {len(points)} PER gate points on the card, each "
+          f"within its limit and within {PER_TWIN_TOL} of its frames of "
+          f"the CPU path's on the same IQ, {same} of them receiving the "
+          f"same frames, in {time.perf_counter() - t_phase:.1f} s ({card})")
+    # (b) the per-stage split of the station step at its bench geometry
+    print(f"phase 11 (b) profile_station: B {profile_station.B} captures "
+          f"of {profile_station.T_WIDE} samples, {profile_station.N_CHAN} "
+          f"channels ({card})")
+    stages = profile_station.profile(dev)
+    for name, st in stages.items():
+        if torch.device(st["device"]).type != dev.type:
+            raise AssertionError(f"phase 11 (b) {name} ran on {st['device']}")
+    psd, demod = stages["welch_psd hop=4*nfft"], \
+        stages["fsk_demod(all channels)"]
+    if psd["launches"] != {"fft_abs2": 1} or \
+            demod["launches"] != {"fsk_scan": 1}:
+        raise AssertionError(f"phase 11 (b): PSD launches "
+                             f"{psd['launches']}, demod {demod['launches']}")
+    out["profile"] = stages
+    # (c) a trace around one steady block of a station with tasks
+    st = make_station(dev, N_CHAN, FS_WIDE)
+    st.process_captures([blocks[0]])
+    trace_dir = WORK / "trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    with probe.trace(str(trace_dir)):
+        st.process_captures([blocks[1]])
+    st.close()
+    trace = (trace_dir / "trace.json").read_text()
+    if "fsk_scan" not in trace:
+        raise AssertionError("phase 11 (c): the trace names no fsk_scan")
+    print(f"phase 11 (c) probe.trace around one steady block: "
+          f"{trace_dir / 'trace.json'} ({len(trace)} bytes) names the scan "
+          f"kernel {trace.count('fsk_scan_kernel')} times")
+    # (d) the demod's internals through the probe registry
+    orig = per_harness.fsk_demod_stream
+
+    def probed(cfg, x, device, **kw):
+        res = orig(cfg, x, device, probe=True, **kw)
+        probe.capture_demod_internals(res[2])
+        return res
+    probe.enable(True)
+    probe.reset()
+    per_harness.fsk_demod_stream = probed
+    kernels.reset_launches()
+    try:
+        row, = per_harness.run_point("RS41", 18.0, 5, device=dev)
+        sf = probe.probe_stream("fsk_sf")
+    finally:
+        per_harness.fsk_demod_stream = orig
+        probe.enable(False)
+        probe.reset()
+    cfg = per_harness.CASES["RS41"](1, None, None).cfg
+    top = (np.argsort(sf[0, -1])[-8:] - cfg.ndft // 2) * cfg.fs / cfg.ndft
+    humps = [any(abs(b - f) < 800 for b in top) for f in (-2400, 2400)]
+    if sf.ndim != 3 or sf.shape[0] != 1 or sf.shape[2] != cfg.ndft or \
+            not all(humps) or row["frames_rx"] != 5 or \
+            kernels.launches["fsk_scan"] != 1:
+        raise AssertionError(f"phase 11 (d): fsk_sf {sf.shape}, tone bins "
+                             f"{top}, {row}, launches {kernels.launches}")
+    out["probe_launches"] = kernels.launches["fsk_scan"]
+    print(f"phase 11 (d) run_point RS41 18 dB, 5 frames, probed on the "
+          f"card: {row['frames_rx']} frames; fsk_sf {list(sf.shape)}, the "
+          f"strongest bins of the last block at {sorted(top.tolist())} Hz")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 11 took {out['seconds']:.1f} s")
+    return out
+
+
 def check_detections(per_block, types_freqs):
     """After the run, one task per sonde, with its type and within 2 kHz
     (``NEAR_HZ``) of its frequency."""
@@ -1853,6 +2088,7 @@ def main() -> int:
     prof = profile_steady(st, blocks)
     print(f"phase 6 profile of {prof['blocks']} steady 1 s blocks, per "
           f"block: {json.dumps(prof)} ({card})")
+    split = split_rows(dev, runs, results, blocks, groups, card)
 
     # 7. detection: the same captures through a station with no task
     check_detector(dev, stream)
@@ -1909,6 +2145,9 @@ def main() -> int:
     # 10. the command lines: the station's and the demod CLI
     cli = cli_phase(dev, card)
 
+    # 11. the quality tools: the PER gate, profile_station, the probe
+    tools = tools_phase(dev, card, runs[0])
+
     entries = []
     for name, src, rep, res, n in (
             ("fsk_scan", "radiosonde_auto_rx_tpu_torch/csrc/fsk_scan.cu",
@@ -1941,6 +2180,14 @@ def main() -> int:
     for e, key in ((scan_e, "fsk_scan"), (k2_e, "fft_abs2")):
         e["phase9_launches"] = {tag: v[key] for tag, v in seq.items()}
         e["phase10_launches"] = cli["cli"]["launches"][key]
+    for e, key in ((scan_e, "fsk_scan"), (k2_e, "fft_abs2")):
+        e["phase6_split_launches"] = split["launches"][key]
+    scan_e["phase11_launches"] = dict(
+        per_gate=sum(p["fsk_scan"] for p in tools["per"]),
+        profile_station=tools["profile"]["fsk_demod(all channels)"][
+            "launches"]["fsk_scan"], probe=tools["probe_launches"])
+    k2_e["phase11_launches"] = dict(profile_station=tools["profile"][
+        "welch_psd hop=4*nfft"]["launches"]["fft_abs2"])
     by_name["fsk_scan_unbuffered"]["path"] = \
         "demod.cli.run (fsk_demod_stream(buffered=False))"
     by_name["fsk_scan_unbuffered"]["demod_cli"] = cli["demod_cli"]

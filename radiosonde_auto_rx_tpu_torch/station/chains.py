@@ -99,5 +99,5 @@ def demod_chain(name: str, fs_ch: int):
 
 
 # ROADMAP.md items that port what the slices so far leave out
-TODO_SPLIT = "the split analyze/confirm/route dispatch (ROADMAP.md " \
-    "queue 1: multi-device)"
+TODO_SPLIT = "a mesh over several devices: expert routing (route_demod, " \
+    "_decode_routed; ROADMAP.md queue 1 item 6: multi-device)"

@@ -32,11 +32,16 @@ Frame decoding runs in the frame-plane worker pool
 reference; 0 = inline): the workers own each task's decoder state, the
 main process keeps the telemetry tail, in ticket order.
 
+With ``fused_steady_step: false`` a narrow batch takes the split
+dispatch instead of the fused block: ``StationStep.analyze`` (channelize
++ PSD, every block), then the same collect, where every task goes
+through ``decode_channels`` (the reference's one-device mesh).  A mesh
+over several devices (``mesh_time_shards`` above 1) is not ported and
+raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+
 The scan/task policy is a copy of the reference's, with the same
 semantics; the frame decoders, telemetry filter and config are the
-port's copies of the reference's host modules.  The split dispatch is
-not ported yet and raises ``NotImplementedError`` naming the ROADMAP.md
-item that ports it.
+port's copies of the reference's host modules.
 """
 
 import dataclasses
@@ -574,7 +579,7 @@ class Station:
         if not bool(self.config.get("use_mesh", True)) or any(
                 self.profile(c).wide for c in centers):
             return ("seq", list(blocks), centers)
-        if not bool(self.config.get("fused_steady_step", True)):
+        if int(self.config.get("mesh_time_shards", 1)) > 1:
             raise NotImplementedError(TODO_SPLIT)
         prof = self.profile(centers[0])
         step = self._step(prof)
@@ -583,7 +588,17 @@ class Station:
         if any(int(p.shape[-1]) != T for p in planes):
             raise ValueError("batch blocks must share a length")
         wide = torch.stack(planes)
-        return self._dispatch_steady(step, prof, wide, len(blocks), centers)
+        if bool(self.config.get("fused_steady_step", True)):
+            return self._dispatch_steady(step, prof, wide, len(blocks),
+                                         centers)
+        # the split dispatch: channelize + PSD only; candidates come from
+        # the PSD scan peaks and go straight to the full-rate confirm, and
+        # every task is demodulated by the collect (the reference's
+        # one-device mesh, where every task is a host task); no fused
+        # step's outputs to collect
+        chf, psd, _ = step.analyze(wide, screen=False)
+        return ("sharded", step, prof, wide, chf, psd, len(blocks), centers,
+                None)
 
     def _dispatch_steady(self, step, prof, wide, B, centers):
         """Speculative fused dispatch: predict the block's tasks from the
@@ -749,15 +764,15 @@ class Station:
         # already recentered the predicted rows; only new/changed rows
         # re-extract here, and rows the dispatch recentered but the
         # (post-retune) policy no longer wants are restored to the
-        # channel center.
+        # channel center.  The split dispatch recentered none.
+        s_rec = steady["rec"] if steady else {}
         restore = {cid: float(prof.freqs[cid % n_chan])
-                   for cid in steady["rec"] if cid not in rec}
-        rec = {cid: f for cid, f in rec.items()
-               if steady["rec"].get(cid) != f}
+                   for cid in s_rec if cid not in rec}
+        rec = {cid: f for cid, f in rec.items() if s_rec.get(cid) != f}
         rec.update(restore)
         # cid -> offset its row holds NOW
         ext_cid = {cid: f_rel - float(prof.freqs[cid % n_chan])
-                   for cid, f_rel in {**steady["rec"], **rec}.items()}
+                   for cid, f_rel in {**s_rec, **rec}.items()}
         chf = self._recenter_cids(chf, wide, prof, rec)
 
         # full-rate confirmation: exact type decisions (headcmp, M10/M20
@@ -825,7 +840,7 @@ class Station:
             legacy = []
             for ci, name, det in items:
                 cid = b * n_chan + ci
-                fp = steady["fused_pos"].get(cid)
+                fp = steady["fused_pos"].get(cid) if steady else None
                 # speculation check: same type, same task frequency, and
                 # no re-extraction pending for the row — else the split
                 # path re-demodulates this channel

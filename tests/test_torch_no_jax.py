@@ -14,7 +14,10 @@ blocks, with and without manual tasks.  A third drives phase 9's paths
 at a small geometry: the sequential route (``use_mesh: false``, 16
 channels at 768 kHz) over the three sondes and six carriers, where the
 detector's prescreen runs on the nine candidates, and one 2 s L-band
-block at 960 kHz (four 240 kHz channels) with an RS92-NGP.  They check the telemetry, the
+block at 960 kHz (four 240 kHz channels) with an RS92-NGP.  A fourth
+runs the quality tools: PER points of the harness (the AFSK and 601/600
+resample preps, an off-grid extraction) and ``profile_station`` at a
+small geometry under ``utils.probe.trace``.  They check the telemetry, the
 detections, that every frame decoder of the port's registry imported,
 and that no blocked module was loaded.  Two more children run the
 command lines, ``python -m radiosonde_auto_rx_tpu_torch --device cpu``
@@ -131,6 +134,30 @@ print(json.dumps(out))
 """
 
 
+TOOLS_CHILD = BLOCKER + r"""
+import tempfile
+from radiosonde_auto_rx_tpu_torch.tools import per_harness, profile_station
+from radiosonde_auto_rx_tpu_torch.utils import probe
+
+cpu = torch.device("cpu")
+out = dict(points=[per_harness.run_point(t, e, 4, device=cpu, f_off=f)[0]
+                   for t, e, f in (("RS41", 14.0, 0.0), ("IMET4", 26.0, 0.0),
+                                   ("MK2LMS", 16.0, 0.0),
+                                   ("DFM", 14.0, 20e3))])
+for k, v in dict(B=1, T_WIDE=480_000, CAP=2, REPS=1, TRIALS=1).items():
+    setattr(profile_station, k, v)
+with tempfile.TemporaryDirectory() as d:
+    with probe.trace(d):
+        stages = profile_station.profile(cpu)
+    import os
+    out["trace"] = os.listdir(d)
+out["stages"] = {k: v["device"] for k, v in stages.items()}
+out["blocked"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in BLOCKED)
+print(json.dumps(out))
+"""
+
+
 def _child(code):
     res = subprocess.run([sys.executable, "-c", code, str(ROOT)],
                          capture_output=True, text=True, timeout=300,
@@ -188,6 +215,18 @@ def test_sequential_and_lband_run_without_jax():
     assert [len(r) for r in out["screened"]] == [9]
     assert sum(v >= MARGIN for v in out["screened"][0]) == 3
     assert out["lband"] and {t[1] for t in out["lband"]} == {"R1234567"}
+
+
+def test_tools_run_without_jax():
+    out = _child(TOOLS_CHILD)
+    assert out["blocked"] == []
+    assert [(r["type"], r["chain"], r["f_off"]) for r in out["points"]] == [
+        ("RS41", "torch", 0.0), ("IMET4", "torch", 0.0),
+        ("MK2LMS", "torch", 0.0), ("DFM", "torch", 20e3)]
+    assert all(r["frames_rx"] >= 3 for r in out["points"]), out["points"]
+    assert len(out["stages"]) == 5 and \
+        set(out["stages"].values()) == {"cpu"}
+    assert out["trace"] == ["trace.json"]
 
 
 def _shadowed(tmp_path):
