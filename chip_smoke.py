@@ -167,13 +167,41 @@ Phases, in order; any failure raises (non-zero exit, traceback):
    Chrome trace names ``fsk_scan``.  (d) ``run_point("RS41", 18.0, 5)``
    with the demod's probe outputs in the probe registry: the spectrum
    [1, blocks, ndft] with the tones at +-2400 Hz.
+12. The mesh, on virtual meshes of the card (every shard on the one
+   device; counters zeroed just before each drive, read just after).
+   (a) (ch, t) = (8, 1): phase 3's 4 s as one batch of four 1 s blocks
+   (padded to 8 with zero blocks), no task: the sharded analyze, the
+   scan, the sharded ``confirm``, then ``route_demod``: the 12 experts
+   pad to 16, two a shard, RS41 (expert 0) on shard 0 and DFM (expert 2)
+   on shard 1, and the all-to-all moves a channel between shards.  The
+   same telemetry and tasks from a CPU station on an (8, 1) mesh, the
+   same tasks as the card's ``use_mesh: false`` station; then the blocks
+   one at a time: the telemetry and tasks of the ``use_mesh: false``
+   station, block by block.  (b) (2, 2) with ``mesh_time_shards`` 2 on
+   two 4 s captures (phase 3's and ``synth_stream`` seed
+   ``MESH_SEED``), one a batch: the channelizer, prescreen and demod
+   halos and the t reductions; the telemetry and tasks of a CPU (2, 2)
+   mesh and of the ``use_mesh: false`` station.  Both: one scan launch
+   a demod call (the experts' scans counted), K1 never alone, K2 at
+   least once.  (c) ``make_station_step`` (IF FIR + demod) on a (4, 2)
+   mesh over 50 RS41 channels of 2 s (``fsk_signal``; two zero rows pad them
+   to 52): every row's bits equal the unsharded card demod of the
+   unsharded FIR output, t-shard by t-shard, one scan launch a shard;
+   ``make_pp_demod_pipeline`` on a 3-stage mesh: the RS41 frames decode,
+   the bits equal the CPU port's, one unbuffered scan launch a
+   microbatch.  Then (a)'s batch in turns with the default 1x1 station
+   on the same blocks, the three sondes as tasks: the block walls and
+   device busy; torch.profiler around one ``route_demod`` (and one with
+   an iMet row added, and one ``make_station_step``): the host's waits
+   on the device inside it, device-to-host copies.
 
 The second-to-last line is a JSON object of per-kernel results (times
 at the main path's shapes, bound, library-call time, the largest error
 of all the checks; launches: the scan's and K2's on the detection path
-(and by phase-8, phase-9 and phase-10 drive, phase 6's split dispatch
-and phase 11's tools), the unbuffered scan's in
-phase 10's demod CLI run, K1's and K3's in their own phases, through
+(and by phase-8, phase-9 and phase-10 drive, phase 6's split dispatch,
+phase 11's tools and phase 12's meshes), the unbuffered scan's in
+phase 10's demod CLI run (and phase 12's pipeline), K1's and K3's in
+their own phases, through
 their entry points; every kernel also lists each shape timed),
 the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before printing any
@@ -437,17 +465,18 @@ def split_blocks(stream, fs_wide: int, block_s: int):
 # the station
 
 def make_station(device, n_chan: int, fs_wide: int, manual: bool = True,
-                 sondes=sondes_for, **config):
-    """A port ``Station`` at this geometry (``config`` over STATION_CFG),
-    with the RS92 decoders' test ephemeris (the station never fetches
-    one); ``manual``: the sondes start as manual tasks, else the station
-    has to find them."""
+                 sondes=sondes_for, mesh=None, **config):
+    """A port ``Station`` at this geometry (``config`` over STATION_CFG;
+    ``mesh``: its mesh, else the station's default), with the RS92
+    decoders' test ephemeris (the station never fetches one);
+    ``manual``: the sondes start as manual tasks, else the station has
+    to find them."""
     from radiosonde_auto_rx_tpu_torch.models.rs92 import make_test_ephemeris
     from radiosonde_auto_rx_tpu_torch.station.station import Station
     st = Station({**STATION_CFG, "capture_rate": fs_wide,
                   "num_channels": n_chan,
                   "rs92_ephemeris": make_test_ephemeris(), **config},
-                 center_freq_hz=CENTER, device=device)
+                 center_freq_hz=CENTER, device=device, mesh=mesh)
     if manual:
         for typ, serial, f_off, _, _ in sondes(n_chan, fs_wide):
             st.start_manual_decoder(CENTER + f_off, typ)
@@ -500,7 +529,7 @@ def check_telemetry(telems, n_chan: int, fs_wide: int, types,
 
 def drive_station(device, runs, n_chan: int, fs_wide: int,
                   manual: bool = True, sondes=sondes_for, setup=None,
-                  **config):
+                  mesh=None, **config):
     """A station path: for each run (a list of blocks), a new station
     (``make_station``; ``setup(station)`` then, where given), then
     ``process_captures`` per block.  The launch counters are zeroed just
@@ -513,7 +542,8 @@ def drive_station(device, runs, n_chan: int, fs_wide: int,
     kernels.reset_launches()
     out = []
     for blocks in runs:
-        st = make_station(device, n_chan, fs_wide, manual, sondes, **config)
+        st = make_station(device, n_chan, fs_wide, manual, sondes, mesh,
+                          **config)
         if setup is not None:
             setup(st)
         telems, per_block = [], []
@@ -808,8 +838,9 @@ def check_path_launches(launches, demod_calls: int, path: str):
 
 class DemodCalls:
     """Counts the station's ``fsk_demod_stream`` calls that demodulate
-    at least one block (those that launch the scan kernel on a card) and
-    the host time spent inside them: a wrapper in both callers' modules
+    at least one block (those that launch the scan kernel on a card),
+    and the routed experts' ``scan`` calls (one launch each), and the
+    host time spent inside them: a wrapper in both callers' modules
     (``parallel/station_step.py``, ``station/station.py``) for the
     duration of a ``with``."""
 
@@ -819,8 +850,22 @@ class DemodCalls:
         from radiosonde_auto_rx_tpu_torch.station import station
         self.calls, self.host_s = 0, 0.0
         self.by_cfg = {}             # "fs/rs" -> calls
+        self.routed = 0              # the experts' scan calls
         self._mods = (station_step, station)
         self._orig = station_step.fsk_demod_stream
+        self._scan = station_step.scan
+
+        def scanned(cfg, x, *args, **kw):
+            self.calls += 1
+            self.routed += 1
+            key = f"{cfg.fs}/{cfg.rs}"
+            self.by_cfg[key] = self.by_cfg.get(key, 0) + 1
+            t0 = time.perf_counter()
+            try:
+                return self._scan(cfg, x, *args, **kw)
+            finally:
+                self.host_s += time.perf_counter() - t0
+        station_step.scan = scanned
 
         def counted(cfg, x, *args, **kw):
             if fsk.fsk_num_blocks_buffered(cfg, x.shape[-1]) > 0:
@@ -837,8 +882,10 @@ class DemodCalls:
         return self
 
     def __exit__(self, *exc):
+        from radiosonde_auto_rx_tpu_torch.parallel import station_step
         for mod in self._mods:
             mod.fsk_demod_stream = self._orig
+        station_step.scan = self._scan
 
 
 def profile_steady(st, blocks, n: int = 4):
@@ -1962,6 +2009,324 @@ def tools_phase(dev, card, blocks):
     return out
 
 
+# ---------------------------------------------------------------------- #
+# phase 12: the mesh on the card (virtual meshes on one device)
+
+MESH_SEED = 22                   # (b)'s second capture
+MESH_WALL_REPS = 5               # (a)'s walls: turns of each station
+# (c): the demod pipeline's frames (the RS41 test frame encoder of
+# tests/test_pp.py) and microbatch
+PP_CFG = dict(fs=48000, rs=4800, m=2, p=5, nsym=50, est_min=-5000,
+              est_max=5000, tone_spacing=5000, freq_est_type=1)
+PP_T_MB = 12000
+
+
+class RouteLog:
+    """Records, for the duration of a ``with``, every channel that
+    ``StationStep.route_demod`` routes, as (expert, the channel's source
+    ch-shard, the expert's ch-shard)."""
+
+    def __enter__(self):
+        from radiosonde_auto_rx_tpu_torch.parallel.station_step import \
+            StationStep
+        self.routes, self._orig = [], StationStep.route_demod
+        log = self
+
+        def logged(step, channels, expert_ids):
+            res = log._orig(step, channels, expert_ids)
+            c_l = next(iter(channels.values())).shape[0]
+            for (i, j), ids in res["ids"].items():
+                if j:
+                    continue             # t-shards repeat the routing
+                ids, mask = ids.cpu().numpy(), res["mask"][(i, j)].cpu(
+                    ).numpy()
+                for slot, s in zip(*np.nonzero(mask)):
+                    log.routes.append((i * step.e_local + int(slot),
+                                       int(ids[slot, s]) // c_l, i))
+            return res
+        StationStep.route_demod = logged
+        return self
+
+    def __exit__(self, *exc):
+        from radiosonde_auto_rx_tpu_torch.parallel.station_step import \
+            StationStep
+        StationStep.route_demod = self._orig
+
+
+def drive_batches(device, batches, mesh=None, manual=False, **config):
+    """A new station (``make_station``; its sondes as manual tasks or
+    none) and ``process_captures`` of each batch (a list of blocks; one
+    center).  The launch counters are zeroed just before and read just
+    after.  Returns ((station, telemetry, [tasks after each batch]),
+    kernel launches)."""
+    import torch
+    from radiosonde_auto_rx_tpu_torch import kernels
+    kernels.reset_launches()
+    st = make_station(device, N_CHAN, FS_WIDE, manual, mesh=mesh, **config)
+    telems, per = [], []
+    for batch in batches:
+        telems.extend(st.process_captures(list(batch)))
+        per.append(tasks_of(st))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return (st, telems, per), dict(kernels.launches)
+
+
+def same_run(a, b, what: str):
+    """Two drives decoded the same telemetry and hold the same tasks
+    after every batch."""
+    (_, tel_a, per_a), (_, tel_b, per_b) = a, b
+    if sorted(map(_key, tel_a)) != sorted(map(_key, tel_b)):
+        raise AssertionError(f"{what}: different telemetry")
+    if len(per_a) != len(per_b) or not all(
+            same_tasks(x, y) for x, y in zip(per_a, per_b)):
+        raise AssertionError(f"{what}: different tasks {per_a} vs {per_b}")
+
+
+def host_waits(fn) -> dict:
+    """torch.profiler around ``fn()`` after a warm-up call: the host's
+    waits on the device (``cuda*Synchronize`` calls) inside it and the
+    device-to-host copies, either of which serializes a real mesh's
+    shards."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("host_waits"):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    (span,) = [e.time_range for e in events if e.name == "host_waits"
+               and e.device_type == DeviceType.CPU]
+    return dict(synchronize=sum(
+        "Synchronize" in e.name and
+        span.start <= e.time_range.start <= span.end for e in events),
+        dtoh=sum("DtoH" in e.name for e in events))
+
+
+def mesh_phase(dev, card, stream):
+    """Phase 12: the station and the module paths on virtual meshes of
+    the card (every shard on ``dev``), each held to the CPU port on the
+    same mesh.  Returns launches, walls and the route check."""
+    import torch
+    from radiosonde_auto_rx_tpu_torch import kernels
+    from radiosonde_auto_rx_tpu_torch.parallel.mesh import make_mesh
+    from radiosonde_auto_rx_tpu_torch.parallel.station_step import \
+        EXPERT_TYPES
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    out = {}
+    want = [(typ, CENTER + f) for typ, _, f, _, _ in
+            sondes_for(N_CHAN, FS_WIDE)]
+    blocks = split_blocks(stream, FS_WIDE, 1)
+
+    # (a) (ch, t) = (8, 1): the batch of four 1 s blocks (padded to 8),
+    # then the blocks one at a time, no task
+    m8 = make_mesh(8, 1, devices=[dev] * 8)
+    with RouteLog() as routes, DemodCalls() as calls:
+        batch, l_batch = drive_batches(dev, [blocks], m8)
+    check_path_launches(l_batch, calls.calls, "phase 12 (a) batch")
+    if calls.routed <= 0:
+        raise AssertionError("phase 12 (a): no expert demod ran")
+    check_detections([(batch[2][-1], 0.0)], want)
+    seen = check_telemetry(batch[1], N_CHAN, FS_WIDE, ("RS41",))
+    # RS41 (expert 0) lands on shard 0, DFM (expert 2) on shard 1
+    landed = {(EXPERT_TYPES[e], dst) for e, _, dst in routes.routes}
+    moved = sorted({(EXPERT_TYPES[e], src, dst)
+                    for e, src, dst in routes.routes if src != dst})
+    if landed != {("RS41", 0), ("DFM", 1)} or not moved:
+        raise AssertionError(f"phase 12 (a): routes {routes.routes}")
+    cpu_batch, _ = drive_batches(cpu, [blocks],
+                                 make_mesh(8, 1, devices=[cpu] * 8))
+    same_run(batch, cpu_batch, "phase 12 (a) batch, card vs CPU mesh")
+    (seq,), l_seq = drive_station(dev, [blocks], N_CHAN, FS_WIDE,
+                                  manual=False, use_mesh=False)
+    if not same_tasks(batch[2][-1], seq[2][-1][0]):
+        raise AssertionError("phase 12 (a): the batch detected other "
+                             "sondes than the use_mesh: false station")
+    with DemodCalls() as calls1:
+        (one,), l_one = drive_station(dev, [blocks], N_CHAN, FS_WIDE,
+                                      manual=False, mesh=m8)
+    check_path_launches(l_one, calls1.calls, "phase 12 (a) one at a time")
+    same_run((one[0], one[1], [t for t, _ in one[2]]),
+             (seq[0], seq[1], [t for t, _ in seq[2]]),
+             "phase 12 (a) one at a time, mesh vs use_mesh: false")
+    print(f"phase 12 (a) (8, 1) mesh on {dev}: batch of {len(blocks)} 1 s "
+          f"blocks: tasks {batch[2][-1]}, frames {seen}, stats "
+          f"{batch[0].stats}; routed across shards (type, from, to) "
+          f"{moved}; launches {l_batch} for {calls.calls} demod calls "
+          f"({calls.routed} expert scans); the same telemetry and tasks "
+          f"as the CPU (8, 1) mesh and the tasks of the use_mesh: false "
+          f"station")
+    print(f"phase 12 (a) blocks one at a time: the telemetry and tasks of "
+          f"the card's use_mesh: false station ({len(one[1])} frames); "
+          f"launches {l_one} for {calls1.calls} demod calls")
+    out["batch_launches"], out["one_launches"] = l_batch, l_one
+    out["moved"] = moved
+
+    # (b) (2, 2), mesh_time_shards 2: two 4 s captures, one a batch
+    m22 = make_mesh(2, 2, devices=[dev] * 4)
+    caps = [[stream], [synth_stream(N_CHAN, FS_WIDE, SECONDS,
+                                    seed=MESH_SEED)]]
+    with DemodCalls() as calls2:
+        tsh, l_tsh = drive_batches(dev, caps, m22, mesh_time_shards=2)
+    check_path_launches(l_tsh, calls2.calls, "phase 12 (b)")
+    seen2 = check_telemetry(tsh[1], N_CHAN, FS_WIDE, ("RS41", "DFM"))
+    cpu_tsh, _ = drive_batches(cpu, caps, make_mesh(2, 2, devices=[cpu] * 4),
+                               mesh_time_shards=2)
+    same_run(tsh, cpu_tsh, "phase 12 (b), card vs CPU mesh")
+    seq2, _ = drive_batches(dev, caps, use_mesh=False)
+    same_run(tsh, seq2, "phase 12 (b), mesh vs use_mesh: false")
+    halo = tsh[0]._steps[(N_CHAN, FS_WIDE // N_CHAN)].halo_max
+    print(f"phase 12 (b) (2, 2) mesh, mesh_time_shards 2, two {SECONDS} s "
+          f"captures (seeds 21, {MESH_SEED}): frames {seen2}, tasks "
+          f"{tsh[2][-1]}, demod halo {halo} channel samples; launches "
+          f"{l_tsh} for {calls2.calls} demod calls; "
+          f"the same telemetry and tasks as the CPU (2, 2) mesh and the "
+          f"use_mesh: false station")
+    out["tshard_launches"] = l_tsh
+
+    # (c) the module paths
+    from radiosonde_auto_rx_tpu_torch.demod.fsk import (
+        FSKConfig, fsk_demod_stream)
+    from radiosonde_auto_rx_tpu_torch.ops.fir import (
+        _conv_valid, design_lowpass)
+    from radiosonde_auto_rx_tpu_torch.parallel.pipeline import \
+        make_station_step
+    from radiosonde_auto_rx_tpu_torch.parallel.pp import (
+        make_pp_demod_pipeline, make_stage_mesh)
+    cfg = cfg_of("RS41")
+    taps = design_lowpass(0.2, 25)
+    T = 2 * 48000
+    x = np.zeros((52, 2, T), np.float32)    # 50 channels, 2 zero rows
+    x[:N_CHAN] = fsk_signal(cfg, N_CHAN, T, seed=12)
+    xd = torch.from_numpy(x).to(dev)
+    kernels.reset_launches()
+    sstep = make_station_step(cfg, make_mesh(4, 2, devices=[dev] * 8), taps)
+    soft, bits = sstep(xd)
+    torch.cuda.synchronize()
+    l_step = dict(kernels.launches)
+    # the unsharded card reference: the zero-state FIR of the whole
+    # stream, then each t-shard's demod from its halo (zeros on shard 0)
+    K, halo, t_l = len(taps), cfg.nmem + 8 * cfg.ts, T // 2
+    y = _conv_valid(torch.cat([torch.zeros((104, K - 1), device=dev),
+                               xd.reshape(104, T)], dim=-1),
+                    taps).reshape(52, 2, T)
+    seg = bits.shape[1] // 2
+    for k, part in enumerate((
+            torch.cat([torch.zeros((52, 2, halo), device=dev),
+                       y[..., :t_l]], dim=-1), y[..., t_l - halo:])):
+        _, b_ref, _, _ = fsk_demod_stream(cfg, part.contiguous(), dev)
+        if not torch.equal(bits[:N_CHAN, k * seg:(k + 1) * seg],
+                           b_ref[:N_CHAN]):
+            raise AssertionError(f"phase 12 (c) make_station_step: t-shard "
+                                 f"{k}'s bits differ from the unsharded "
+                                 f"demod")
+    if l_step["fsk_scan"] != 8 or l_step["freq_est_sf"]:
+        raise AssertionError(f"phase 12 (c) make_station_step launches "
+                             f"{l_step}")
+    print(f"phase 12 (c) make_station_step (IF FIR + demod) on a (4, 2) "
+          f"mesh, {N_CHAN} RS41 channels of {T} samples: bits equal the "
+          f"unsharded card demod on every row and t-shard; launches "
+          f"{l_step}")
+    pcfg = FSKConfig(**PP_CFG)
+    rng = np.random.default_rng(5)
+    tx = np.concatenate([rng.integers(0, 2, 400),
+                         _rs41_bits("S0930112", 48.1, 11.6, 2, rng),
+                         rng.integers(0, 2, 700)]).astype(np.uint8)
+    from radiosonde_auto_rx_tpu_torch.demod.modulate import (
+        add_awgn, gfsk_mod)
+    iq = add_awgn(gfsk_mod(tx, 48000, 4800, 2, 0.0, 4800, bt=0.5), 15.0,
+                  48000, 4800, rng=rng)
+    planes = np.repeat(np.stack([iq.real, iq.imag]).astype(
+        np.float32)[None], 2, axis=0)
+    M = planes.shape[-1] // PP_T_MB
+    xs = np.ascontiguousarray(planes[:, :, :M * PP_T_MB].reshape(
+        2, 2, M, PP_T_MB).transpose(2, 0, 1, 3))
+    pp_out, l_pp = [], None
+    for d in (dev, cpu):
+        kernels.reset_launches()
+        run = make_pp_demod_pipeline(
+            pcfg, make_stage_mesh(3, devices=[d] * 3), taps, channels=2,
+            t_mb=PP_T_MB)
+        pp_out.append(run(torch.from_numpy(xs).to(d)))
+        if l_pp is None:
+            torch.cuda.synchronize()
+            l_pp = dict(kernels.launches)
+    (soft_g, bits_g), (soft_c, bits_c) = pp_out
+    if not torch.equal(bits_g.cpu(), bits_c):
+        raise AssertionError("phase 12 (c) pp demod: card and CPU bits "
+                             "differ")
+    from radiosonde_auto_rx_tpu_torch.models.rs41 import RS41Decoder
+    telems = RS41Decoder().decode_bits(bits_g[:, 0].reshape(-1).cpu().numpy(),
+                                       -soft_g[:, 0].reshape(-1).cpu().numpy())
+    if not telems or telems[0]["id"] != "S0930112":
+        raise AssertionError(f"phase 12 (c) pp demod decoded {telems}")
+    if l_pp["fsk_scan_unbuffered"] != M or l_pp["freq_est_sf"]:
+        raise AssertionError(f"phase 12 (c) pp launches {l_pp}")
+    print(f"phase 12 (c) make_pp_demod_pipeline on a 3-stage mesh, {M} "
+          f"microbatches of {PP_T_MB}: {len(telems)} RS41 frames decoded, "
+          f"bits equal the CPU port's; launches {l_pp}")
+    out["station_step_launches"], out["pp_launches"] = l_step, l_pp
+
+    # walls: (a)'s batched block against the default 1x1 station's, in
+    # turns, both steady (the three sondes as manual tasks)
+    st_mesh = make_station(dev, N_CHAN, FS_WIDE, mesh=m8)
+    st_one = make_station(dev, N_CHAN, FS_WIDE)
+    walls = {"mesh (8, 1)": [], "default 1x1": []}
+    for st in (st_mesh, st_one):
+        st.process_captures(blocks)             # warm: tasks, caches
+    for _ in range(MESH_WALL_REPS):
+        for tag, st in (("mesh (8, 1)", st_mesh), ("default 1x1", st_one)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st.process_captures(blocks)
+            torch.cuda.synchronize()
+            walls[tag].append((time.perf_counter() - t0) * 1e3 /
+                              len(blocks))
+    from radiosonde_auto_rx_tpu_torch.tools.profile_station import \
+        device_busy_ms
+    busy = {tag: device_busy_ms(lambda st=st: st.process_captures(blocks),
+                                reps=2) / len(blocks)
+            for tag, st in (("mesh (8, 1)", st_mesh),
+                            ("default 1x1", st_one))}
+    step = st_mesh._steps[(N_CHAN, FS_WIDE // N_CHAN)]
+    wide = torch.stack([st_mesh._wide_planes(b) for b in blocks] +
+                       [torch.zeros((2, FS_WIDE), device=dev)] * 4)
+    chf, _, _ = step.analyze(wide, screen=False)
+    exp = np.full(8 * N_CHAN, -1, np.int64)
+    for b in range(len(blocks)):
+        for typ, _, f, _, _ in sondes_for(N_CHAN, FS_WIDE):
+            st_mesh.center_freq = CENTER
+            exp[b * N_CHAN + st_mesh.channel_of_freq(CENTER + f)] = \
+                EXPERT_TYPES.index(typ)
+    exp_imet = exp.copy()
+    exp_imet[N_CHAN + 3] = EXPERT_TYPES.index("IMET4")   # a noise row
+    syncs = {"route_demod": host_waits(lambda: step.route_demod(chf, exp)),
+             "route_demod, an iMet row added": host_waits(
+                 lambda: step.route_demod(chf, exp_imet)),
+             "make_station_step": host_waits(lambda: sstep(xd))}
+    out["walls_ms"] = {k: dict(median=statistics.median(v), all=v)
+                       for k, v in walls.items()}
+    out["busy_ms"], out["route_syncs"] = busy, syncs
+    for tag in walls:
+        print(f"phase 12 steady 1 s block in a batch of {len(blocks)}, "
+              f"{tag}: median {statistics.median(walls[tag]):.2f} ms "
+              f"({[round(v, 2) for v in walls[tag]]}), device busy "
+              f"{busy[tag]:.3f} ms a block ({card})")
+    for tag, v in syncs.items():
+        print(f"phase 12 host waits on the device inside {tag} ((8, 1) "
+              f"mesh, {len(blocks)} blocks x 3 sondes; (4, 2) for the "
+              f"step): {v['synchronize']}, device-to-host copies "
+              f"{v['dtoh']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 12 took {out['seconds']:.1f} s")
+    return out
+
+
 def check_detections(per_block, types_freqs):
     """After the run, one task per sonde, with its type and within 2 kHz
     (``NEAR_HZ``) of its frequency."""
@@ -2148,6 +2513,9 @@ def main() -> int:
     # 11. the quality tools: the PER gate, profile_station, the probe
     tools = tools_phase(dev, card, runs[0])
 
+    # 12. the mesh: virtual meshes of the card
+    mesh = mesh_phase(dev, card, stream)
+
     entries = []
     for name, src, rep, res, n in (
             ("fsk_scan", "radiosonde_auto_rx_tpu_torch/csrc/fsk_scan.cu",
@@ -2188,6 +2556,12 @@ def main() -> int:
             "launches"]["fsk_scan"], probe=tools["probe_launches"])
     k2_e["phase11_launches"] = dict(profile_station=tools["profile"][
         "welch_psd hop=4*nfft"]["launches"]["fft_abs2"])
+    for e, key in ((scan_e, "fsk_scan"), (k2_e, "fft_abs2")):
+        e["phase12_launches"] = {
+            tag: mesh[f"{tag}_launches"][key]
+            for tag in ("batch", "one", "tshard", "station_step")}
+    by_name["fsk_scan_unbuffered"]["phase12_launches"] = dict(
+        pp=mesh["pp_launches"]["fsk_scan_unbuffered"])
     by_name["fsk_scan_unbuffered"]["path"] = \
         "demod.cli.run (fsk_demod_stream(buffered=False))"
     by_name["fsk_scan_unbuffered"]["demod_cli"] = cli["demod_cli"]

@@ -21,6 +21,7 @@ is one multi-output convolution with the same result.
 """
 
 from contextlib import contextmanager
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -90,7 +91,7 @@ def fir_filter_block(x, hs, stride: int = 1):
     squeeze = x.dim() == 1
     if squeeze:
         x = x[None, :]
-    hs = torch.as_tensor(hs, dtype=torch.float32, device=x.device)
+    hs = _taps_tensor(hs, x.device)
     if hs.dim() == 1:
         hs = hs[None, :]
     K = hs.shape[-1]
@@ -107,10 +108,25 @@ def fir_filter(x, h):
     return fir_filter_block(x, h)[..., 0, :]
 
 
+@lru_cache(maxsize=64)
+def _taps_cached(raw: bytes, shape: tuple, device: torch.device):
+    return torch.from_numpy(
+        np.frombuffer(raw, np.float32).reshape(shape).copy()).to(device)
+
+
+def _taps_tensor(h, device) -> torch.Tensor:
+    """Taps as a float32 tensor on ``device``.  Host taps are copied to
+    a device once and reused: each copy from pageable host memory makes
+    the host wait for the device's queue."""
+    if isinstance(h, torch.Tensor):
+        return h.to(device=device, dtype=torch.float32)
+    a = np.ascontiguousarray(h, np.float32)
+    return _taps_cached(a.tobytes(), a.shape, torch.device(device))
+
+
 def _taps_on(h, x):
     """Taps as a reversed conv1d weight [1, 1, K] on ``x``'s device."""
-    h = torch.as_tensor(h, dtype=torch.float32, device=x.device)
-    return h.flip(-1)[None, None, :]
+    return _taps_tensor(h, x.device).flip(-1)[None, None, :]
 
 
 def _conv_valid(x, h):

@@ -97,7 +97,3 @@ def demod_chain(name: str, fs_ch: int):
                      chain.get("mask", 0))
     return cfg, rs_to, False
 
-
-# ROADMAP.md items that port what the slices so far leave out
-TODO_SPLIT = "a mesh over several devices: expert routing (route_demod, " \
-    "_decode_routed; ROADMAP.md queue 1 item 6: multi-device)"

@@ -11,8 +11,8 @@ frame decoding in the frame-plane worker pool.
 The device is chosen here: ``--device`` (default ``cuda``).  A run that
 finds no CUDA device and did not ask for ``--device cpu`` exits with
 ``EXIT_ERROR`` and names the missing card; it never falls back to the
-CPU.  The port has no mesh: a cycle drains ``mesh_microbatch`` blocks
-(default 1) from each source, what the reference computes on one device.
+CPU.  With a mesh a cycle drains ``mesh_microbatch`` blocks from each
+source (default: enough to fill the ``ch`` shards, 1 on one device).
 
 CLI flags mirror the reference (auto_rx.py:765-815): ``-c`` config file,
 ``-f`` single-frequency decode (MHz), ``-m`` forced sonde type, ``-t``
@@ -532,11 +532,14 @@ def run_station(args, config) -> int:
             return out
         return station.captures_collect(pending)
 
-    # blocks drained per source per cycle: the reference's micro-batch
-    # on a one-device mesh (the port has no mesh)
+    # blocks drained per source per cycle: with a mesh, read enough
+    # consecutive blocks to fill the ch shards (micro-batching trades
+    # one cycle of latency for full-mesh occupancy; sources >= shards
+    # need no micro-batch)
     mb = 1
-    if forced_chan is None:
-        mb = int(config.get("mesh_microbatch", 0)) or 1
+    if station.mesh is not None and forced_chan is None:
+        mb = int(config.get("mesh_microbatch", 0)) or \
+            max(1, station.mesh.shape["ch"] // n_src)
 
     try:
         n_blocks = 0

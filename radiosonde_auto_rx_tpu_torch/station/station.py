@@ -1,17 +1,26 @@
 """The station: wideband IQ blocks in, telemetry out.
 
-Port of ``radiosonde_auto_rx_tpu/station/station.py::Station`` on one
-device.  ``start_manual_decoder`` registers a task; ``process_captures``
-runs ``captures_dispatch`` and ``captures_collect`` over a batch of
-blocks by one of two routes, as in the reference:
+Port of ``radiosonde_auto_rx_tpu/station/station.py::Station``.
+``start_manual_decoder`` registers a task; ``process_captures`` runs
+``captures_dispatch`` and ``captures_collect`` over a batch of blocks by
+one of three routes, as in the reference:
 
-- the fused steady block (a narrow capture with ``use_mesh`` on, the
-  reference's one-device mesh): one ``StationStep.steady_step`` per
-  batch (channelize + PSD + recentering + per-type demod, speculated
-  from the current task state), then the host scan and task policy, the
-  full-rate confirmation of new scan candidates, which starts a task for
-  each detected sonde, the speculation check, and frame decoding into
-  telemetry;
+- the fused steady block (a narrow capture with ``use_mesh`` on and a
+  one-shard mesh, the default on one GPU): one
+  ``StationStep.steady_step`` per batch (channelize + PSD + recentering
+  + per-type demod, speculated from the current task state), then the
+  host scan and task policy, the full-rate confirmation of new scan
+  candidates, which starts a task for each detected sonde, the
+  speculation check, and frame decoding into telemetry;
+- the sharded split dispatch (a mesh of several shards, or
+  ``fused_steady_step: false``): ``StationStep.analyze`` over the mesh
+  (the batch padded with zero blocks to a multiple of the ``ch`` size),
+  the host scan and task policy, the sharded ``confirm`` of the scan
+  candidates, then, with several ``ch`` shards, every task of an expert
+  type through ``route_demod`` (the all-to-all to its expert's shard and
+  the per-expert demod there) and ``_decode_routed``; every other task,
+  and every task on one ``ch`` shard, through ``decode_channels`` on
+  its rows gathered from the shards;
 - the sequential route (``use_mesh: false``, or any capture centered at
   or above 1 GHz, the L-band profile of 240 kHz channels):
   ``process_capture`` block by block — PSD scan, row allocation,
@@ -32,12 +41,12 @@ Frame decoding runs in the frame-plane worker pool
 reference; 0 = inline): the workers own each task's decoder state, the
 main process keeps the telemetry tail, in ticket order.
 
-With ``fused_steady_step: false`` a narrow batch takes the split
-dispatch instead of the fused block: ``StationStep.analyze`` (channelize
-+ PSD, every block), then the same collect, where every task goes
-through ``decode_channels`` (the reference's one-device mesh).  A mesh
-over several devices (``mesh_time_shards`` above 1) is not ported and
-raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+The mesh: ``Station(..., mesh=...)``, else with ``use_mesh`` on
+``make_mesh(n_t=mesh_time_shards)`` over every visible CUDA device when
+``device`` is ``cuda`` with no index, over ``[device]`` otherwise (one
+device: a 1x1 mesh; ``mesh_time_shards`` above 1 then raises, as the
+reference's ``make_mesh`` does).  The station's host code needs every
+shard in its process.
 
 The scan/task policy is a copy of the reference's, with the same
 semantics; the frame decoders, telemetry filter and config are the
@@ -63,11 +72,14 @@ from radiosonde_auto_rx_tpu_torch.ops.channelizer import (
     channel_freqs, channelize, extract_channels, extract_phases,
     pfb_prototype)
 from radiosonde_auto_rx_tpu_torch.ops.resample import resample_planes
-from radiosonde_auto_rx_tpu_torch.parallel.station_step import StationStep
+from radiosonde_auto_rx_tpu_torch.parallel.mesh import (
+    gather_rows, make_mesh, scatter_rows, unshard)
+from radiosonde_auto_rx_tpu_torch.parallel.station_step import (
+    EXPERT_TYPES, ROWS, StationStep)
 from radiosonde_auto_rx_tpu_torch.station import gps_ephem
 from radiosonde_auto_rx_tpu_torch.station.chains import (
-    CHAIN_TABLE, DRIFT_MIN_HZ, MODEL_NAME, RECENTER_MIN_HZ, TODO_SPLIT,
-    WIDE_SCAN_FS, WIDE_SCAN_WIN_HZ, WIDE_WIDTH_HZ, demod_chain)
+    CHAIN_TABLE, DRIFT_MIN_HZ, MODEL_NAME, RECENTER_MIN_HZ, WIDE_SCAN_FS,
+    WIDE_SCAN_WIN_HZ, WIDE_WIDTH_HZ, demod_chain)
 from radiosonde_auto_rx_tpu_torch.station.config import default_config
 from radiosonde_auto_rx_tpu_torch.station.frame_plane import FramePlane
 from radiosonde_auto_rx_tpu_torch.station.telemetry import (
@@ -109,15 +121,25 @@ class _BandProfile:
 
 
 class Station:
-    """Batch station on ``device``: wideband IQ blocks in, telemetry out.
+    """Batch station on ``device`` (and ``mesh``): wideband IQ blocks in,
+    telemetry out.
 
     Task state is keyed by absolute frequency (Hz), as in the
     reference."""
 
     def __init__(self, config: dict | None = None, exporters=None,
-                 center_freq_hz: float = 402.5e6, *, device):
+                 center_freq_hz: float = 402.5e6, *, device, mesh=None):
         self.device = torch.device(device)
         self.config = {**default_config(), **(config or {})}
+        if mesh is None and bool(self.config.get("use_mesh", True)):
+            devices = None if self.device.type == "cuda" and \
+                self.device.index is None else [self.device]
+            mesh = make_mesh(n_t=int(self.config.get("mesh_time_shards", 1)),
+                             devices=devices)
+        if mesh is not None and not mesh.all_local:
+            raise ValueError("the station needs every mesh shard in its "
+                             "process")
+        self.mesh = mesh
         self.exporters = exporters or []
         self.center_freq = center_freq_hz
         self.fs_wide = int(self.config["capture_rate"])
@@ -410,13 +432,18 @@ class Station:
     def _step(self, prof) -> StationStep:
         key = (prof.n_chan, prof.fs_ch)
         if key not in self._steps:
-            # confirmation slots cover a scan's worth of candidates (the
-            # reference's default on a one-device mesh)
-            conf_default = max(2, 2 * int(self.config.get("max_peaks", 10)))
+            # confirmation slots cover a scan's worth of candidates
+            # whatever the mesh size (2 a shard on an 8-way mesh; a
+            # one-shard mesh gets the same total on one shard)
+            n_sh = self.mesh.shape["ch"] if self.mesh is not None else 1
+            conf_default = max(2, -(-2 * int(self.config.get(
+                "max_peaks", 10)) // n_sh))
             self._steps[key] = StationStep(
                 self.device, n_chan=prof.n_chan, fs_ch=prof.fs_ch,
                 conf_capacity=int(self.config.get("confirm_capacity",
-                                                  conf_default)))
+                                                  conf_default)),
+                mesh=self.mesh,
+                capacity=int(self.config.get("expert_capacity", 4)))
         return self._steps[key]
 
     def process_capture(self, wideband_iq, center_freq_hz=None) -> list:
@@ -576,26 +603,26 @@ class Station:
         if centers is None:
             centers = [self.center_freq] * len(blocks)
         centers = [float(c) for c in centers]
-        if not bool(self.config.get("use_mesh", True)) or any(
-                self.profile(c).wide for c in centers):
+        if self.mesh is None or any(self.profile(c).wide for c in centers):
             return ("seq", list(blocks), centers)
-        if int(self.config.get("mesh_time_shards", 1)) > 1:
-            raise NotImplementedError(TODO_SPLIT)
         prof = self.profile(centers[0])
         step = self._step(prof)
         planes = [self._wide_planes(b) for b in blocks]
         T = int(planes[0].shape[-1])
         if any(int(p.shape[-1]) != T for p in planes):
             raise ValueError("batch blocks must share a length")
-        wide = torch.stack(planes)
-        if bool(self.config.get("fused_steady_step", True)):
+        # pad the batch with zero blocks to a multiple of the ch size
+        B_pad = -(-len(blocks) // step.n_sh) * step.n_sh
+        wide = torch.stack(planes + [torch.zeros_like(planes[0])] *
+                           (B_pad - len(blocks)))
+        if self.mesh.size == 1 and \
+                bool(self.config.get("fused_steady_step", True)):
             return self._dispatch_steady(step, prof, wide, len(blocks),
                                          centers)
-        # the split dispatch: channelize + PSD only; candidates come from
-        # the PSD scan peaks and go straight to the full-rate confirm, and
-        # every task is demodulated by the collect (the reference's
-        # one-device mesh, where every task is a host task); no fused
-        # step's outputs to collect
+        # the split dispatch: channelize + PSD only (sharded over the
+        # mesh); candidates come from the PSD scan peaks and go straight
+        # to the full-rate confirm, and every task is demodulated by the
+        # collect; no fused step's outputs to collect
         chf, psd, _ = step.analyze(wide, screen=False)
         return ("sharded", step, prof, wide, chf, psd, len(blocks), centers,
                 None)
@@ -694,6 +721,9 @@ class Station:
     def _collect_sharded_inner(self, step, prof, wide, chf, psd, B,
                                centers, steady) -> list:
         n_chan = prof.n_chan
+        sharded = isinstance(chf, dict)
+        if sharded:
+            psd = unshard(psd, self.mesh, ROWS)
         psd_np = None if psd is None else _np(psd)
 
         # host policy per block: scan peaks + task state -> candidates
@@ -788,7 +818,11 @@ class Station:
                         len(cand) - S, len(cand))
             cand = [cand[i] for i in order[:S]]
         if cand:
+            # a mesh of several shards takes every slot (-1 pads); one
+            # shard only the real candidates
             slots = np.asarray(cand, np.int64)
+            if sharded:
+                slots = np.concatenate([slots, np.full(S - len(cand), -1)])
             conf = step.confirm(chf, slots)
             for cid, dets in step.decide_confirmed(conf, slots).items():
                 if not dets:
@@ -824,11 +858,24 @@ class Station:
             else:
                 kept.append(fz)
 
+        # expert routing over the mesh; other types host-batched.  On a
+        # single ch shard there is nothing to route: every task is a host
+        # task (the per-type batch of only the types present)
+        exp_ids = np.full(-(-B // step.n_sh) * step.n_sh * n_chan, -1,
+                          np.int64)
         host_tasks = {}              # block -> [(ci, name, det)]
         for cid, (name, det) in tasks.items():
-            b, ci = divmod(cid, n_chan)
-            host_tasks.setdefault(b, []).append((ci, name, det))
+            if step.n_sh > 1 and name in EXPERT_TYPES:
+                exp_ids[cid] = EXPERT_TYPES.index(name)
+            else:
+                b, ci = divmod(cid, n_chan)
+                host_tasks.setdefault(b, []).append((ci, name, det))
         telems = []
+        if (exp_ids >= 0).any():
+            res = step.gather_routed(step.route_demod(chf, exp_ids))
+            telems.extend(self._decode_routed(
+                step, res, tasks, centers, n_chan,
+                int(wide.shape[-1]) // n_chan, cid_off, ext_cid))
         fused_items = []             # (name, j, cid) served by steady
         for b, items in host_tasks.items():
             self.center_freq = centers[b]
@@ -852,10 +899,22 @@ class Station:
                     fused_items.append((name, fp[1], cid))
                 else:
                     legacy.append((ci, name, det))
-            rows = chf[b * n_chan:(b + 1) * n_chan]
             for name, grp in self.group_tasks_by_type(
                     legacy, n_chan).items():
-                telems.extend(self.decode_channels(rows, grp, name))
+                if not sharded:
+                    telems.extend(self.decode_channels(
+                        chf[b * n_chan:(b + 1) * n_chan], grp, name))
+                    continue
+                # only the group's rows leave the shards (none for a
+                # wideband chain, which extracts from the wideband block)
+                wide_chain = CHAIN_TABLE[name].get("wide_fs", 0) > \
+                    prof.fs_ch
+                rows = None if wide_chain else gather_rows(
+                    chf, self.mesh, [b * n_chan + ci for ci, _ in grp],
+                    self.device)
+                telems.extend(self.decode_channels(
+                    rows, [(k, det) for k, (_, det) in enumerate(grp)],
+                    name, chan_map={k: ci for k, (ci, _) in enumerate(grp)}))
         if fused_items:
             self.stats["fused_channels"] = \
                 self.stats.get("fused_channels", 0) + len(fused_items)
@@ -1020,8 +1079,54 @@ class Station:
         ext = extract_channels(wide[blk], self.fs_wide,
                                [f for _, f in items], n_chan, self.device,
                                prof.pfb_taps)
+        if isinstance(chf, dict):
+            return scatter_rows(chf, [cid for cid, _ in items], ext)
         rows = torch.tensor([cid for cid, _ in items], device=self.device)
         return chf.index_copy(0, rows, ext)
+
+    def _decode_routed(self, step, res, tasks, centers, n_chan, t_total,
+                       cid_off, ext_cid) -> list:
+        """Host frame plane over ``route_demod`` outputs (``res``, from
+        ``gather_routed``): slice each routed slot's valid bits/soft,
+        apply the per-chain host tail (AFSK bit inversion), decode
+        task-keyed by frequency."""
+        ids = _np(res["ids"])
+        mask = _np(res["mask"])
+        ebno = _np(res["ebno"])
+        fres = _np(res["fres"])
+        fcnt = _np(res["fcnt"])
+        dropped = int(_np(res["dropped"]).sum())
+        if dropped:
+            # capacity overflow: the reference's loss mode when
+            # detections exceed the available SDRs
+            log.warning("expert routing dropped %d channel(s) — raise "
+                        "expert_capacity", dropped)
+        out = []
+        for e, name in enumerate(EXPERT_TYPES):
+            afsk = bool(CHAIN_TABLE[name].get("afsk"))
+            for s in np.flatnonzero(mask[e]):
+                cid = int(ids[e, s])
+                b, ci = divmod(cid, n_chan)
+                self.center_freq = centers[b]
+                self._offsets = {ci: cid_off.get(cid, 0.0)}
+                fz = self.freq_of_channel(ci)
+                det = tasks.get(cid, (None, None))[1]
+                bits, soft = step.slot_bits(res, e, int(s), t_total)
+                if afsk:
+                    bits, soft = 1 - bits, None  # sym 0 = 1200 Hz = bit 1
+                f_resid = None
+                if not afsk and fcnt[e, s] >= 1.0:
+                    f_resid = float(np.clip(fres[e, s], -2500.0, 2500.0))
+                try:
+                    out.extend(self._decode_frames(
+                        fz, name, bits, soft, float(ebno[e, s]), det,
+                        f_resid=f_resid,
+                        f_demod=self._f_demod_of(
+                            ci, fz, ext=ext_cid.get(cid, 0.0))))
+                except Exception:
+                    log.exception("decode failed on %.3f MHz (%s)",
+                                  fz / 1e6, name)
+        return out
 
     @staticmethod
     def group_tasks_by_type(tasks, n_rows: int) -> dict:

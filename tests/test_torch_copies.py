@@ -105,8 +105,8 @@ CHANGED = {
          "The device is chosen here: ``--device`` (default ``cuda``).  A run that\n"
          "finds no CUDA device and did not ask for ``--device cpu`` exits with\n"
          "``EXIT_ERROR`` and names the missing card; it never falls back to the\n"
-         "CPU.  The port has no mesh: a cycle drains ``mesh_microbatch`` blocks\n"
-         "(default 1) from each source, what the reference computes on one device.\n"),
+         "CPU.  With a mesh a cycle drains ``mesh_microbatch`` blocks from each\n"
+         "source (default: enough to fill the ``ch`` shards, 1 on one device).\n"),
         ("import numpy as np\n"
          "\n",
          ""),
@@ -129,17 +129,6 @@ CHANGED = {
         ("            dets = station.detector.detect(\n"
          "                np.asarray(ch[forced_chan])[None])[0]\n",
          "            dets = station.detector.detect(ch[forced_chan][None])[0]\n"),
-        ("    # blocks drained per source per cycle: with a mesh, read enough\n"
-         "    # consecutive blocks to fill the ch shards (micro-batching trades\n"
-         "    # one cycle of latency for full-mesh occupancy; sources >= shards\n"
-         "    # need no micro-batch)\n",
-         "    # blocks drained per source per cycle: the reference's micro-batch\n"
-         "    # on a one-device mesh (the port has no mesh)\n"),
-        ("    if station.mesh is not None and forced_chan is None:\n"
-         '        mb = int(config.get("mesh_microbatch", 0)) or \\\n'
-         '            max(1, station.mesh.shape["ch"] // n_src)\n',
-         "    if forced_chan is None:\n"
-         '        mb = int(config.get("mesh_microbatch", 0)) or 1\n'),
         ('            log.critical("no source: pass --replay or configure an SDR")\n'
          "            return EXIT_CONFIG\n",
          '            log.critical("no source: pass --replay or configure an SDR")\n'

@@ -460,3 +460,63 @@ def test_station_cli_replay_on_the_card_equals_cpu(dev, tmp_path):
         assert cli.run_station(args, cfg) == cli.EXIT_OK
         rows[d] = cs.log_rows(tmp_path / d)
     assert len(rows["cuda"]) == 3 and rows["cuda"] == rows["cpu"]
+
+
+def test_mesh_station_cuda_equals_cpu(dev):
+    """A (2, 2) virtual mesh of the card, ``mesh_time_shards`` 2, a 4 s
+    block at 8 channels with no task: the CUDA mesh station finds and
+    decodes what the CPU station on the same mesh does, the RS41s and
+    the DFM through the experts' scans, one launch each."""
+    from radiosonde_auto_rx_tpu_torch.parallel.mesh import make_mesh
+    n, fs = 8, 384_000
+    stream = cs.synth_stream(n, fs, 4)
+    cpu = torch.device("cpu")
+    with cs.DemodCalls() as calls:
+        gpu, launches = cs.drive_station(
+            dev, [[stream]], n, fs, manual=False, mesh_time_shards=2,
+            mesh=make_mesh(2, 2, devices=[dev] * 4))
+    ref, _ = cs.drive_station(cpu, [[stream]], n, fs, manual=False,
+                              mesh_time_shards=2,
+                              mesh=make_mesh(2, 2, devices=[cpu] * 4))
+    assert calls.routed > 0 and launches["fsk_scan"] == calls.calls
+    assert launches["freq_est_sf"] == 0 and launches["fft_abs2"] > 0
+    assert gpu[0][0].stats["detections"] == 3
+    assert cs.same_tasks(gpu[0][2][0][0], ref[0][2][0][0])
+    got = sorted(map(cs._key, gpu[0][1]))
+    assert got and got == sorted(map(cs._key, ref[0][1]))
+
+
+def test_sharded_modules_cuda_equal_cpu(dev):
+    """``make_station_step`` on a (4, 2) virtual mesh of the card and
+    ``make_pp_demod_pipeline`` on a 3-stage one: the CPU port's bits on
+    the same meshes, one scan launch a shard (a microbatch)."""
+    from radiosonde_auto_rx_tpu_torch.demod.fsk import FSKConfig
+    from radiosonde_auto_rx_tpu_torch.ops.fir import design_lowpass
+    from radiosonde_auto_rx_tpu_torch.parallel.mesh import make_mesh
+    from radiosonde_auto_rx_tpu_torch.parallel.pipeline import \
+        make_station_step
+    from radiosonde_auto_rx_tpu_torch.parallel.pp import (
+        make_pp_demod_pipeline, make_stage_mesh)
+    cfg = cs.cfg_of("RS41")
+    taps = design_lowpass(0.2, 25)
+    x = torch.from_numpy(cs.fsk_signal(cfg, 8, 96000, seed=3))
+    cpu = torch.device("cpu")
+    out = []
+    for d in (dev, cpu):
+        kernels.reset_launches()
+        out.append((make_station_step(cfg, make_mesh(
+            4, 2, devices=[d] * 8), taps)(x.to(d))[1].cpu(),
+            kernels.launches["fsk_scan"]))
+    assert torch.equal(out[0][0], out[1][0]) and out[0][1] == 8
+    pcfg = FSKConfig(**cs.PP_CFG)
+    xs = torch.from_numpy(cs.fsk_signal(pcfg, 2, 5 * cs.PP_T_MB, seed=4))
+    xs = xs.reshape(2, 2, 5, cs.PP_T_MB).permute(2, 0, 1, 3).contiguous()
+    bits = []
+    for d in (dev, cpu):
+        kernels.reset_launches()
+        run = make_pp_demod_pipeline(pcfg, make_stage_mesh(3, devices=[d] * 3),
+                                     taps, channels=2, t_mb=cs.PP_T_MB)
+        bits.append(run(xs.to(d))[1].cpu())
+        if d == dev:
+            assert kernels.launches["fsk_scan_unbuffered"] == 5
+    assert torch.equal(bits[0], bits[1])

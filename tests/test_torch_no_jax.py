@@ -7,7 +7,10 @@ drives its station on the CPU at 8 channels (384 kHz) over the smoke
 script's three sondes (RS41 on grid, RS41 +10 kHz off grid, DFM), as
 four 1 s blocks and as two 2 s blocks, exactly as ``chip_smoke.py``
 drives them on the card: once with the sondes as manual tasks, once
-with no task, so that the station finds them by itself.  A second child
+with no task, so that the station finds them by itself; then with no
+task as two 2 s blocks on a (ch, t) = (2, 1) virtual mesh, where the
+RS41s and the DFM are routed to their experts' shards
+(``route_demod``).  A second child
 drives the remaining paths on phase 8's sondes (an iMet-4, a WXR301
 off grid, two RS41s in one channel; ``wideband_sondes`` on) as two 2 s
 blocks, with and without manual tasks.  A third drives phase 9's paths
@@ -80,6 +83,18 @@ for manual in (True, False):
         detections=[st.stats["detections"] for st, _, _ in results],
         tasks=[sorted(v["type"] for v in st.active.values())
                for st, _, _ in results])
+from radiosonde_auto_rx_tpu_torch.parallel.mesh import make_mesh
+from radiosonde_auto_rx_tpu_torch.parallel.station_step import StationStep
+routed = []
+route = StationStep.route_demod
+StationStep.route_demod = lambda self, *a: (routed.append(1),
+                                            route(self, *a))[1]
+cpu = torch.device("cpu")
+(res,), _ = cs.drive_station(cpu, [runs[1]], n, fs, manual=False,
+                             mesh=make_mesh(2, 1, devices=[cpu] * 2))
+out["mesh"] = dict(seen=cs.check_telemetry(res[1], n, fs, ("RS41", "DFM")),
+                   routed=len(routed), detections=res[0].stats["detections"],
+                   tasks=sorted(v["type"] for v in res[0].active.values()))
 out["blocked"] = sorted(m for m in sys.modules
                         if m.split(".")[0] in BLOCKED)
 print(json.dumps(out))
@@ -183,6 +198,11 @@ def test_slice_runs_without_jax():
     assert out["False"]["detections"] == [3, 3]
     assert out["True"]["detections"] == [0, 0]
     assert out["False"]["tasks"] == [["DFM", "RS41", "RS41"]] * 2
+    # the (2, 1) mesh: found, routed once a block, decoded
+    mesh = out["mesh"]
+    assert mesh["detections"] == 3 and mesh["routed"] == 2
+    assert mesh["tasks"] == ["DFM", "RS41", "RS41"]
+    assert all(v > 0 for v in mesh["seen"].values())
     assert {"RS41", "RS92", "DFM", "M10", "M20", "LMS6", "IMET5",
             "MEISEI", "MRZ", "MTS01", "DROPSONDE"} <= set(out["models"])
 

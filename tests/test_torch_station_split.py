@@ -24,7 +24,11 @@ device, against the reference and against the port's fused block.
   decodes the same telemetry and holds the same tasks block by block as
   the port's fused station, as 1 s and as 2 s blocks; it demodulates
   once a type group a block and scans the PSD every block.
-- A mesh over several devices still raises, naming ROADMAP.md's item.
+- ``mesh_time_shards`` 2 runs on a mesh that has the devices: on an
+  8-shard virtual CPU mesh, a 4 s block of ``synth_stream``'s capture
+  with manual tasks dispatches the split route and collects the
+  ``use_mesh: false`` station's telemetry; given one device, the station
+  raises as the reference's ``make_mesh`` does.
 """
 
 import jax
@@ -36,7 +40,7 @@ import chip_smoke as cs
 from radiosonde_auto_rx_tpu.parallel.mesh import make_mesh
 from radiosonde_auto_rx_tpu.station.station import Station as RefStation
 from radiosonde_auto_rx_tpu_torch.parallel import station_step
-from radiosonde_auto_rx_tpu_torch.station.chains import TODO_SPLIT
+from radiosonde_auto_rx_tpu_torch.parallel.mesh import make_mesh as mesh_of
 from radiosonde_auto_rx_tpu_torch.station.station import Station
 
 from test_station_sharded import CENTERS, _cfg, _Collect, _key
@@ -174,9 +178,20 @@ def test_split_equals_fused(block_s, manual, monkeypatch):
         assert calls.calls == groups * len(blocks)
 
 
-def test_mesh_over_several_devices_not_ported():
-    st = Station({"capture_rate": 384_000, "num_channels": 8,
-                  "mesh_time_shards": 2}, device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        st.captures_dispatch([np.zeros((2, 384_000), np.float32)])
-    assert "item 6" in TODO_SPLIT
+def test_mesh_time_shards_on_a_mesh_of_several_devices():
+    n, fs = 8, 384_000
+    cfg = {"mesh_time_shards": 2}
+    stream = cs.synth_stream(n, fs, 4)
+    (seq,), _ = cs.drive_station(CPU, [[stream]], n, fs, use_mesh=False)
+    (mesh,), _ = cs.drive_station(
+        CPU, [[stream]], n, fs, mesh=mesh_of(devices=[CPU] * 8, n_t=2),
+        **cfg)
+    st = mesh[0]
+    assert (st.mesh.shape["ch"], st.mesh.shape["t"]) == (4, 2)
+    assert mesh[1] and sorted(map(_key, mesh[1])) == \
+        sorted(map(_key, seq[1]))
+    assert cs.tasks_of(st) == cs.tasks_of(seq[0])
+    with pytest.raises(ValueError, match="not divisible by n_t=2"):
+        Station({"capture_rate": fs, "num_channels": n, **cfg}, device=CPU)
+    with pytest.raises(AssertionError, match="not divisible by n_t=2"):
+        make_mesh(n_t=2, devices=jax.devices()[:1])
