@@ -194,12 +194,36 @@ Phases, in order; any failure raises (non-zero exit, traceback):
    device busy; torch.profiler around one ``route_demod`` (and one with
    an iMet row added, and one ``make_station_step``): the host's waits
    on the device inside it, device-to-host copies.
+13. The reference's accelerator forms, forced by their switches
+   (``TPU_FORMS``: bf16 polyphase branches and FM streams, the
+   blocked-Toeplitz correlation, the block-normalized peak search).
+   (a) Each form on the card against the CPU's run of the same form at
+   the detector's geometry (phase 7's three rows of 48,000 samples, the
+   class holding RS41 and DFM): ``_corr_toeplitz`` in float32 and bf16,
+   ``_correlate_peaks_blocknorm`` in both ``rescore`` modes and
+   ``_correlate_peaks`` under each ``RSX_DETECT_PEAKS``, each on float32
+   and bf16 streams; ``_channelize`` (1 s of the capture) and
+   ``_extract`` (the three rows) in bf16; each tolerance in
+   ``forms_check``.  (b) A subprocess started with the four switches in
+   its environment (two are read at import) drives phase 7's task-less
+   blocks (counters zeroed just before, read just after): the same
+   tasks block by block and the same telemetry as phase 7's float32
+   station, bf16 channel planes, one scan launch a demod call and K2 at
+   least once; then the detection block in turns with the float32
+   forms, ``tools.profile_station``'s channelize, prescreen and
+   full-pass stages (beside phase 11's float32 ones), and the prescreen
+   and the full pass on 4, 16 and 64 rows in both forms.  (c) ``python
+   -m radiosonde_auto_rx_tpu_torch.tools.dcn_probe --device cpu`` (two
+   gloo processes on the host's CPU) exits 0; its fit is printed; on a
+   host with one GPU the probe's default (``--device cuda``: NCCL, one
+   GPU a process) exits 1 and says why.
 
 The second-to-last line is a JSON object of per-kernel results (times
 at the main path's shapes, bound, library-call time, the largest error
 of all the checks; launches: the scan's and K2's on the detection path
 (and by phase-8, phase-9 and phase-10 drive, phase 6's split dispatch,
-phase 11's tools and phase 12's meshes), the unbuffered scan's in
+phase 11's tools, phase 12's meshes and phase 13's TPU forms), the
+unbuffered scan's in
 phase 10's demod CLI run (and phase 12's pipeline), K1's and K3's in
 their own phases, through
 their entry points; every kernel also lists each shape timed),
@@ -218,6 +242,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -2346,6 +2371,386 @@ def same_tasks(a, b) -> bool:
 
 
 # ---------------------------------------------------------------------- #
+# phase 13: the reference's accelerator forms of the detector and the
+# channelizer, forced by their switches
+
+# the four switches at the reference's TPU choices
+TPU_FORMS = {"RSX_CHANNELIZER_DTYPE": "bfloat16",
+             "RSX_DETECT_DTYPE": "bfloat16",
+             "RSX_DETECT_CORR": "toeplitz", "RSX_DETECT_PEAKS": "blocknorm"}
+# the recentered extraction's bf16 planes, card against CPU, of their
+# peak: the float32 rotation (cos/sin of the phase tables) rounds
+# differently on the card, which can move a bf16 rounding of the rotated
+# input by a unit before the 12 rounded branch steps
+EXTRACT_BF16_TOL = 2 ** -6
+# the detection-block turns and the forms' subprocess; the row counts
+# at which the prescreen and the full pass are timed in both forms
+FORM_TURNS = 3
+SWEEP_ROWS = (4, 16, 64)
+SWEEP_REPS = 5
+FORMS_TIMEOUT = 420
+
+
+@contextmanager
+def use_forms(tpu: bool):
+    """Inside the ``with``, the four switches at the reference's TPU
+    choices (``tpu``) or at their defaults (the float32 / FFT / exact
+    forms): the environment (read at each call) and the correlator's two
+    module globals (read from the environment at import); restored on
+    exit."""
+    from radiosonde_auto_rx_tpu_torch.detect import correlator
+    env = {k: os.environ.get(k) for k in TPU_FORMS}
+    glob = (correlator._CORR_METHOD, correlator._PEAKS_METHOD)
+    for k, v in TPU_FORMS.items():
+        if tpu:
+            os.environ[k] = v
+        else:
+            os.environ.pop(k, None)
+    correlator._CORR_METHOD = TPU_FORMS["RSX_DETECT_CORR"] if tpu else "auto"
+    correlator._PEAKS_METHOD = TPU_FORMS["RSX_DETECT_PEAKS"] if tpu \
+        else "auto"
+    try:
+        yield
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        correlator._CORR_METHOD, correlator._PEAKS_METHOD = glob
+
+
+def _bf16_ulp(t):
+    """One bfloat16 unit in the last place at each value of tensor t."""
+    import torch
+    return torch.exp2(torch.floor(torch.log2(
+        t.abs().double().clamp(min=1e-30))) - 7)
+
+
+def _close(what, got, want, tol, errs):
+    """Hold ``got`` (a card tensor) to ``want`` (CPU) within ``tol``
+    (a tensor of limits or a number); record the largest error."""
+    g, w = got.cpu().double(), want.double()
+    err = (g - w).abs()
+    errs[what] = float(err.max())
+    if bool((err > tol).any()):
+        raise AssertionError(f"phase 13 (a) {what}: card and CPU differ by "
+                             f"{float(err.max()):.3e}")
+
+
+def _peaks_match(what, got, want, vtol, errs, counts, tie):
+    """(val, t_pk, dc, xm) of a peak search on the card against the
+    CPU's: positions equal except where ``tie`` (the CPU's best two
+    exact |scores| of that row and template are within the tolerance);
+    values within ``vtol`` (a tensor of limits or a number) where the
+    positions agree; stream means within DET_TOL."""
+    import torch
+    gv, gi, gd, gm = (t.cpu() for t in got)
+    cv, ci, cd, cm = want
+    if not torch.equal(gi[~tie], ci[~tie]):
+        raise AssertionError(f"phase 13 (a) {what}: peak positions differ "
+                             f"where the CPU's best two scores do not tie: "
+                             f"{gi[~tie]} vs {ci[~tie]}")
+    same = gi == ci
+    counts[what] = (int((~tie).sum()), int(same.sum()), same.numel())
+    tol = vtol[same] if hasattr(vtol, "shape") else vtol
+    _close(what, gv[same], cv[same], tol, errs)
+    _close(what + " xm", gm, cm, DET_TOL, errs)
+
+
+def forms_check(dev, stream):
+    """Phase 13 (a): each form on the card against the CPU's run of the
+    same form, at the detector's geometry (phase 7's three sondes' rows
+    of the first 1 s block, extracted and conditioned on the CPU; the
+    class holding RS41 and DFM, 48,000 samples a row).  Tolerances:
+    float32 correlation 1e-5 of its peak (float32 sums in another
+    order); bf16 values a bf16 unit in the last place (each package
+    rounds once from its float32 sum) plus 1e-6 of the peak; peak scores
+    DET_TOL in float32 (the normalization's cumsums, see phase 7), plus
+    2^-7 of the score on bf16 streams (the peak's correlation is a bf16
+    value); peak positions equal except where the CPU's best two exact
+    |scores| tie within DET_TOL (plus 2^-7 of the best on bf16 streams),
+    as in phase 7; the bf16 channelizer's planes a bf16 unit of each
+    value plus 1e-6 of the peak (its branch steps are elementwise
+    roundings, the same on both; only the DFT's sum order differs), the
+    extraction's EXTRACT_BF16_TOL of the peak."""
+    import torch
+    from radiosonde_auto_rx_tpu_torch.detect import correlator
+    from radiosonde_auto_rx_tpu_torch.detect.scanner import SondeDetector
+    from radiosonde_auto_rx_tpu_torch.ops import channelizer
+    cpu = torch.device("cpu")
+    wide = split_blocks(stream, FS_WIDE, 1)[0].astype(np.float32) / 32768.0
+    freqs = [f for _, _, f, _, _ in sondes_for(N_CHAN, FS_WIDE)]
+    rows = channelizer.extract_channels(wide, FS_WIDE, freqs, N_CHAN, cpu)
+    det = SondeDetector(FS_WIDE // N_CHAN, prescreen=False, device=cpu)
+    cls = next(i for i, cl in enumerate(det.classes)
+               if {"RS41", "DFM"} <= {s.name for s in cl[2]})
+    fm = det._condition(rows - rows.mean(-1, keepdim=True) * 0.98)[cls]
+    _, _, _, bank, lens = det.classes[cls]
+    errs, counts = {}, {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x, b = fm.to(dt), bank.to(dt)
+        xd, bd = x.to(dev), b.to(dev)
+        # ties: the CPU's best two exact |scores| within the tolerance
+        # (a bf16 stream's scores carry its rounding: 2^-7 of the best)
+        corr, xnorm, _ = correlator._correlate(x, b, lens)
+        top2 = (corr / xnorm).abs().topk(2, dim=-1).values
+        tie = (top2[..., 0] - top2[..., 1]) < (
+            DET_TOL if dt == torch.float32 else
+            DET_TOL + 2 ** -7 * top2[..., 0])
+        want = correlator._corr_toeplitz(x, b)
+        got = correlator._corr_toeplitz(xd, bd)
+        if got.dtype != dt:
+            raise AssertionError("phase 13 (a): the Toeplitz cube's dtype")
+        peak = float(want.float().abs().max())
+        _close(f"_corr_toeplitz {name}", got, want,
+               1e-5 * peak if dt == torch.float32 else
+               _bf16_ulp(want) + 1e-6 * peak, errs)
+        for rescore in (True, False):
+            want = correlator._correlate_peaks_blocknorm(x, b, lens,
+                                                         rescore=rescore)
+            got = correlator._correlate_peaks_blocknorm(xd, bd, lens,
+                                                        rescore=rescore)
+            vtol = DET_TOL if dt == torch.float32 else \
+                DET_TOL + 2 ** -7 * want[0].abs()
+            _peaks_match(f"_correlate_peaks_blocknorm rescore={rescore} "
+                         f"{name}", got, want, vtol, errs, counts, tie)
+        for peaks in ("exact", "blocknorm"):
+            old = correlator._PEAKS_METHOD
+            correlator._PEAKS_METHOD = peaks
+            try:
+                want = correlator._correlate_peaks(x, b, lens)
+                got = correlator._correlate_peaks(xd, bd, lens)
+            finally:
+                correlator._PEAKS_METHOD = old
+            vtol = DET_TOL if dt == torch.float32 else \
+                DET_TOL + 2 ** -7 * want[0].abs()
+            _peaks_match(f"_correlate_peaks {peaks} {name}", got, want,
+                         vtol, errs, counts, tie)
+    with use_forms(True):
+        taps = torch.from_numpy(channelizer.pfb_prototype(N_CHAN))
+        want = channelizer._channelize(torch.from_numpy(wide), taps, N_CHAN)
+        got = channelizer._channelize(torch.from_numpy(wide).to(dev),
+                                      taps.to(dev), N_CHAN)
+        if got.dtype != torch.bfloat16:
+            raise AssertionError("phase 13 (a): the channelizer's dtype")
+        peak = float(want.float().abs().max())
+        _close("_channelize bf16", got, want,
+               _bf16_ulp(want) + 1e-6 * peak, errs)
+        want = channelizer.extract_channels(wide, FS_WIDE, freqs, N_CHAN,
+                                            cpu)
+        got = channelizer.extract_channels(wide, FS_WIDE, freqs, N_CHAN,
+                                           dev)
+        peak = float(want.float().abs().max())
+        _close("_extract bf16", got, want, EXTRACT_BF16_TOL * peak, errs)
+    print(f"phase 13 (a) forms on the card against the CPU (3 rows x "
+          f"48,000 samples, {len(lens)} templates; channelizer on 1 s of "
+          f"{FS_WIDE} Hz): max errors {json.dumps(errs)}; (pairs that do "
+          f"not tie, positions equal, pairs) {json.dumps(counts)}")
+    if not all(n for n, _, _ in counts.values()):
+        raise AssertionError("phase 13 (a): a position check compared no "
+                             "peak")
+    return errs
+
+
+def _detection_block_ms(dev, block) -> float:
+    """Wall ms of the block in which a new task-less station scans,
+    confirms and decodes (phase 7's detection block)."""
+    import torch
+    st = make_station(dev, N_CHAN, FS_WIDE, manual=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st.process_captures([block])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def forms_child(out_path, dev=None) -> int:
+    """Phase 13 (b), in a process started with the four switches at the
+    reference's TPU choices (``TPU_FORMS`` in its environment): phase
+    7's task-less drive of phase 3's capture (1 s, then 2 s blocks); the
+    detection block timed in turns with the default forms (switched off
+    for their turns); ``tools.profile_station``'s channelize, prescreen
+    and full-pass stages (the float32 forms' are phase 11's); the
+    prescreen and the full pass on SWEEP_ROWS rows in both forms.
+    Writes a JSON result.  ``dev``:
+    the card (default), or another device for a rehearsal."""
+    import torch
+    from radiosonde_auto_rx_tpu_torch import kernels
+    from radiosonde_auto_rx_tpu_torch.detect import correlator
+    from radiosonde_auto_rx_tpu_torch.detect.scanner import stream_dtype
+    from radiosonde_auto_rx_tpu_torch.ops.channelizer import _branch_dtype
+    from radiosonde_auto_rx_tpu_torch.parallel.station_step import \
+        StationStep
+    from radiosonde_auto_rx_tpu_torch.tools import profile_station
+    if dev is None:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            return 2
+        dev = torch.device("cuda", 0)
+        kernels.library()
+    forms = [correlator._corr_method(), correlator._peaks_method(),
+             str(stream_dtype()), str(_branch_dtype())]
+    if forms != ["toeplitz", "blocknorm", "torch.bfloat16",
+                 "torch.bfloat16"]:
+        raise AssertionError(f"phase 13 (b): forms {forms}")
+    planes = set()
+    analyze = StationStep.analyze
+
+    def recorded(self, *a, **k):
+        res = analyze(self, *a, **k)
+        planes.add(str(res[0].dtype))
+        return res
+
+    StationStep.analyze = recorded
+    stream = synth_stream(N_CHAN, FS_WIDE, SECONDS)
+    runs = [split_blocks(stream, FS_WIDE, 1), split_blocks(stream, FS_WIDE, 2)]
+    want = [(typ, CENTER + f) for typ, _, f, _, _ in
+            sondes_for(N_CHAN, FS_WIDE)]
+    with DemodCalls() as calls:
+        results, launches = drive_station(dev, runs, N_CHAN, FS_WIDE,
+                                          manual=False)
+    StationStep.analyze = analyze
+    check_path_launches(launches, calls.calls, "phase 13 TPU forms")
+    out = dict(forms=forms, planes=sorted(planes), launches=launches,
+               demod_calls=calls.calls, runs=[])
+    for (st, telems, per_block), types in zip(
+            results, (("RS41",), ("RS41", "DFM"))):
+        check_detections(per_block, want)
+        out["runs"].append(dict(
+            seen=check_telemetry(telems, N_CHAN, FS_WIDE, types),
+            telemetry=sorted(map(_key, telems)),
+            tasks=[tasks for tasks, _ in per_block],
+            detections=st.stats["detections"]))
+    walls = {"float32": [], "tpu": []}
+    for _ in range(FORM_TURNS):
+        for tag, tpu in (("float32", False), ("tpu", True)):
+            with use_forms(tpu):
+                walls[tag].append(_detection_block_ms(dev, runs[0][0]))
+    out["detect_block_ms"] = walls
+    gen = torch.Generator(device=dev).manual_seed(1)
+    wide = torch.randn((profile_station.B, 2, profile_station.T_WIDE),
+                       generator=gen, device=dev)
+    res = {}
+    for name, fn in profile_station.stages(dev, wide):
+        if name.startswith(("channelize", "det_")):
+            profile_station._stage(name, fn, wide.shape[0] * wide.shape[-1],
+                                   dev, res)
+    out["profile"] = {k: dict(ms=v["ms"], clock=v["clock"])
+                      for k, v in res.items()}
+    # where the prescreen starts to pay: both detector stages on C rows,
+    # the profiler's device busy sum (both stages block the host)
+    sweep = {"float32": {}, "tpu": {}}
+    keep = (profile_station.CAP, profile_station.DUTY)
+    try:
+        for rows in SWEEP_ROWS:
+            profile_station.CAP = rows
+            profile_station.DUTY = (rows + 0.5) / (profile_station.B *
+                                                   profile_station.N_CHAN)
+            for tag, tpu in (("float32", False), ("tpu", True)):
+                with use_forms(tpu):
+                    sweep[tag][rows] = [
+                        profile_station.device_busy_ms(fn, SWEEP_REPS)
+                        for name, fn in profile_station.stages(dev, wide)
+                        if name.startswith("det_")]
+    finally:
+        profile_station.CAP, profile_station.DUTY = keep
+    out["sweep"] = sweep
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def forms_phase(dev, card, stream, d_results, f32_profile=None):
+    """Phase 13: (a) ``forms_check``; (b) ``forms_child`` in a
+    subprocess with the four switches set, its tasks and telemetry held
+    to phase 7's float32 station, its stage times printed beside
+    ``f32_profile`` (phase 11's ``profile_station``); (c) ``python -m
+    radiosonde_auto_rx_tpu_torch.tools.dcn_probe --device cpu``, and
+    on a one-GPU host its default (``cuda``) refused."""
+    import torch
+    t_phase = time.perf_counter()
+    errs = forms_check(dev, stream)
+    WORK.mkdir(parents=True, exist_ok=True)
+    path = WORK / "forms.json"
+    path.unlink(missing_ok=True)
+    env = dict(os.environ, **TPU_FORMS)
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--forms", str(path)], env=env,
+                         capture_output=True, text=True,
+                         timeout=FORMS_TIMEOUT)
+    if res.returncode != 0:
+        raise AssertionError(f"phase 13 (b): exit {res.returncode}\n"
+                             f"{res.stderr[-4000:]}")
+    got = json.loads(path.read_text())
+    if got["planes"] != ["torch.bfloat16"]:
+        raise AssertionError(f"phase 13 (b): channel planes {got['planes']}")
+    for run, (_, telems, per_block) in zip(got["runs"], d_results):
+        want_t = sorted(map(_key, telems))
+        if [tuple(t) for t in run["telemetry"]] != want_t:
+            raise AssertionError("phase 13 (b): the TPU forms' station "
+                                 "decoded other telemetry than the float32 "
+                                 "station")
+        for tasks, (tasks_f, _) in zip(run["tasks"], per_block):
+            if not same_tasks([tuple(t) for t in tasks], tasks_f):
+                raise AssertionError(f"phase 13 (b): tasks {tasks} vs the "
+                                     f"float32 station's {tasks_f}")
+    walls = got["detect_block_ms"]
+    print(f"phase 13 (b) station under {json.dumps(TPU_FORMS)} (a "
+          f"subprocess), no task, phase 7's blocks: detections "
+          f"{[r['detections'] for r in got['runs']]}, frames "
+          f"{[r['seen'] for r in got['runs']]}, the same tasks block by "
+          f"block and the same telemetry as phase 7's float32 station; "
+          f"channel planes {got['planes']}; launches {got['launches']}, "
+          f"demod calls {got['demod_calls']}")
+    print(f"phase 13 (b) detection block (1 s, new station) in turns: "
+          f"float32 forms median "
+          f"{statistics.median(walls['float32']):.2f} ms "
+          f"{[round(v, 2) for v in walls['float32']]}, TPU forms median "
+          f"{statistics.median(walls['tpu']):.2f} ms "
+          f"{[round(v, 2) for v in walls['tpu']]} ({card})")
+    for stage, t in got["profile"].items():
+        f = (f32_profile or {}).get(stage)
+        print(f"phase 13 (b) profile_station {stage}: TPU forms "
+              f"{t['ms']:.3f} ms ({t['clock']}), float32 forms (phase 11) "
+              + (f"{f['ms']:.3f} ms ({f['clock']})" if f else "not run")
+              + f" ({card})")
+    for tag, rows in got["sweep"].items():
+        print(f"phase 13 (b) {tag} forms, device ms on C rows, prescreen / "
+              f"full pass: " + ", ".join(
+                  f"C={c}: {p:.3f} / {f:.3f}" for c, (p, f) in rows.items())
+              + f" ({card})")
+    t0 = time.perf_counter()
+    probe_cmd = [sys.executable, "-m",
+                 "radiosonde_auto_rx_tpu_torch.tools.dcn_probe"]
+    probe = subprocess.run(
+        probe_cmd + ["--device", "cpu", "-o", str(WORK / "dcn_probe.json")],
+        capture_output=True, text=True, timeout=300,
+        cwd=Path(__file__).resolve().parent)
+    if probe.returncode != 0:
+        raise AssertionError(f"phase 13 (c): dcn_probe exit "
+                             f"{probe.returncode}\n{probe.stderr[-4000:]}")
+    fit = json.loads((WORK / "dcn_probe.json").read_text())
+    print(f"phase 13 (c) tools.dcn_probe --device cpu in "
+          f"{time.perf_counter() - t0:.1f} s: {json.dumps(fit)}")
+    if torch.cuda.device_count() < 2:
+        # the default device is the card; NCCL needs one GPU a process
+        short = subprocess.run(probe_cmd, capture_output=True, text=True,
+                               timeout=120,
+                               cwd=Path(__file__).resolve().parent)
+        if short.returncode != 1 or "needs 2 GPUs" not in short.stderr:
+            raise AssertionError(f"phase 13 (c): dcn_probe on one GPU "
+                                 f"exit {short.returncode}\n"
+                                 f"{short.stderr[-2000:]}")
+        print(f"phase 13 (c) tools.dcn_probe (default --device cuda) on "
+              f"{torch.cuda.device_count()} GPU: exit 1, "
+              f"{short.stderr.strip().splitlines()[-1]}")
+    got["seconds"] = time.perf_counter() - t_phase
+    got["errors"], got["dcn_probe"] = errs, fit
+    print(f"phase 13 took {got['seconds']:.1f} s")
+    return got
+
+
+# ---------------------------------------------------------------------- #
 
 def main() -> int:
     import torch
@@ -2516,6 +2921,9 @@ def main() -> int:
     # 12. the mesh: virtual meshes of the card
     mesh = mesh_phase(dev, card, stream)
 
+    # 13. the reference's accelerator forms, forced by their switches
+    forms = forms_phase(dev, card, stream, d_results, tools["profile"])
+
     entries = []
     for name, src, rep, res, n in (
             ("fsk_scan", "radiosonde_auto_rx_tpu_torch/csrc/fsk_scan.cu",
@@ -2560,6 +2968,8 @@ def main() -> int:
         e["phase12_launches"] = {
             tag: mesh[f"{tag}_launches"][key]
             for tag in ("batch", "one", "tshard", "station_step")}
+    for e, key in ((scan_e, "fsk_scan"), (k2_e, "fft_abs2")):
+        e["phase13_launches"] = forms["launches"][key]
     by_name["fsk_scan_unbuffered"]["phase12_launches"] = dict(
         pp=mesh["pp_launches"]["fsk_scan_unbuffered"])
     by_name["fsk_scan_unbuffered"]["path"] = \
@@ -2578,4 +2988,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--forms"]:
+        sys.exit(forms_child(sys.argv[2]))
     sys.exit(main())

@@ -113,7 +113,10 @@ def iq_planes(x, device) -> torch.Tensor:
     """Normalize IQ input to float32 [C, 2, T] planes on ``device``.
 
     Accepts complex [C, T] / [T] (NumPy or torch; NumPy complex is split
-    on the host) or already-split real [C, 2, T]."""
+    on the host) or already-split real [C, 2, T].  bfloat16 planes (the
+    channelizer's ``RSX_CHANNELIZER_DTYPE`` output) pass through in
+    bfloat16, as the reference's do; their consumers compute in
+    float32."""
     if not isinstance(x, torch.Tensor):
         x = np.asarray(x)
         if np.iscomplexobj(x):
@@ -128,6 +131,8 @@ def iq_planes(x, device) -> torch.Tensor:
         x = torch.stack([x.real, x.imag], dim=1)
     if x.dim() != 3 or x.shape[1] != 2:
         raise ValueError("real input must be [C, 2, T]")
+    if x.dtype == torch.bfloat16:
+        return x.to(device=device)
     return x.to(device=device, dtype=torch.float32)
 
 
@@ -673,7 +678,8 @@ def fsk_demod_stream(cfg: FSKConfig, x, device, state: FSKState | None = None,
     is_cplx = x.is_complex() if isinstance(x, torch.Tensor) \
         else np.iscomplexobj(x)
     squeeze = is_cplx and len(x.shape) == 1
-    x = iq_planes(x, device)
+    # bf16 planes: the scan reads a float32 copy (the upcast is exact)
+    x = iq_planes(x, device).float()
     C, _, T = x.shape
     if state is None:
         state = fsk_init_state(cfg, C, x.device)

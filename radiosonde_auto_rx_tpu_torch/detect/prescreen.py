@@ -20,20 +20,23 @@ holding no sonde are rejected cheaply:
 * peaks come from the block-normalized chunked correlation without
   positions (``correlator._correlate_peaks_blocknorm_scan(positions=
   False)``) on every device, as in the reference, with each class's
-  banded matmul operand built once here; a stream shorter than two
-  templates takes the exact path.
+  banded matmul operand built once (in each stream dtype) by the
+  correlator; a stream shorter than two templates takes the exact
+  path.
 
 A channel survives when any type's |score| clears ``MARGIN * thres``.
 Survivors get the unchanged full-rate pass, so accepted detections keep
-the full pass's scores and positions.  The streams are float32 (the
-reference's bfloat16 streams apply only on a TPU).
+the full pass's scores and positions.  The streams are in the
+detector's ``stream_dtype()`` (``RSX_DETECT_DTYPE``: float32 unless it
+asks for bfloat16, the reference's TPU form), and so are the banks and
+banded operands they are correlated with.
 """
 
 import numpy as np
 import torch
 
 from radiosonde_auto_rx_tpu_torch.detect.correlator import (
-    _correlate_peaks_blocknorm_scan, _correlate_peaks_exact, banded_operand)
+    _correlate_peaks_blocknorm_scan, _correlate_peaks_exact)
 from radiosonde_auto_rx_tpu_torch.detect.templates import build_template_bank
 from radiosonde_auto_rx_tpu_torch.ops.fir import (
     design_lowpass, fir_filter_block)
@@ -107,18 +110,19 @@ class Prescreen:
             bank_t = on(bank)
             self.classes.append((
                 None if h_if is None else on(h_if), on(h_fm), bank_t,
-                tuple(int(v) for v in lens), on(thres), d,
-                banded_operand(bank_t)))
+                tuple(int(v) for v in lens), on(thres), d))
 
     def scores(self, x):
         """x: [C, 2, T] IQ planes -> ratio [C] (max_k |score_k|/thres_k)."""
         return self.template_ratios(x).amax(dim=1)
 
     def template_ratios(self, x):
-        """x: [C, 2, T] float32 IQ planes on the device -> [C, K_total]
-        per-template |score|/thres ratios, templates ordered as
-        ``spec_order``."""
-        x = x.float()
+        """x: [C, 2, T] IQ planes on the device -> [C, K_total]
+        per-template |score|/thres ratios (float32), templates ordered as
+        ``spec_order``; computed in ``stream_dtype()``."""
+        from radiosonde_auto_rx_tpu_torch.detect.scanner import stream_dtype
+        sdt = stream_dtype()
+        x = x.to(sdt)
         C, _, T = x.shape
         # one strided filter-bank pass per distinct stride over the
         # stacked re/im rows
@@ -131,23 +135,23 @@ class Prescreen:
             hs = torch.stack([self.classes[i][0] for i in idxs])
             y = fir_filter_block(x.reshape(C * 2, T), hs, stride=d) \
                 .reshape(C, 2, len(idxs), -1)
-            fmf = fm_discriminate_planes_mixed(y[:, 0], y[:, 1])  # [C,F,T/d]
+            fmf = fm_discriminate_planes_mixed(y[:, 0], y[:, 1], sdt)
             for fi, i in enumerate(idxs):
                 streams[i] = fmf[:, fi]
         if any(cl[0] is None for cl in self.classes):
-            fm_raw = fm_discriminate_planes_mixed(x[:, 0], x[:, 1])
+            fm_raw = fm_discriminate_planes_mixed(x[:, 0], x[:, 1], sdt)
             for i, cl in enumerate(self.classes):
                 if cl[0] is None:
                     streams[i] = fm_raw
         ratios = []
-        for s, (h_if, h_fm, bank, lens, thres, d, w) in zip(streams,
-                                                           self.classes):
+        for s, (h_if, h_fm, bank, lens, thres, d) in zip(streams,
+                                                        self.classes):
             # FM lowpass at the class rate; the raw class decimates here
             stride = d if h_if is None else 1
             fm = fir_filter_block(s, h_fm[None, :], stride=stride)[:, 0]
             if fm.shape[-1] >= 2 * bank.shape[-1]:
                 val = _correlate_peaks_blocknorm_scan(
-                    fm, bank, lens, positions=False, w=w)[0]
+                    fm, bank, lens, positions=False)[0]
             else:
                 val = _correlate_peaks_exact(fm, bank, lens)[0]
             ratios.append(val.abs() / thres[None, :])

@@ -49,6 +49,7 @@ def _welch(x, nfft: int, hop: int | None = None):
     tilings; hop = k*nfft reads one nfft window per hop stride (sparse
     sampling, integration duty 1/k — the station scan uses k = 4)."""
     C, _, T = x.shape
+    x = x.float()            # a bf16 block: K2 reads a float32 copy
     hop = nfft // 2 if hop is None else hop
     if hop <= nfft:
         if nfft % hop:

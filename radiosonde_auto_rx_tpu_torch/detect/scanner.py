@@ -6,12 +6,16 @@ class (6/12/22/200 kHz, or the 1680 MHz table with ``lband``;
 reference scan/dft_detect.c:148-149, :1405-1410): an IF lowpass over
 the re/im planes, one FM discriminator, an FM-audio lowpass, then the
 class's templates correlated against the stream — batched over
-channels, float32 throughout (the reference's bfloat16 ``stream_dtype``
-applies only on a TPU, and its ``RSX_DETECT_DTYPE`` switch is not
-ported).  As in the reference, the half-rate ``Prescreen``
-(``detect/prescreen.py``) is built by default (not for L-band) and
-rejects empty channels of a batch of 8 or more before the full pass.
+channels, in ``stream_dtype()`` (``RSX_DETECT_DTYPE``, read at each
+call: float32 unless it asks for bfloat16, the reference's TPU form;
+the FIR banks, the discriminator's products and the streams are then
+bfloat16, its ``atan2`` float32).  As in the reference, the half-rate
+``Prescreen`` (``detect/prescreen.py``) is built by default (not for
+L-band) and rejects empty channels of a batch of 8 or more before the
+full pass.
 """
+
+import os
 
 import numpy as np
 import torch
@@ -21,6 +25,7 @@ from radiosonde_auto_rx_tpu_torch.detect.correlator import detect_types
 from radiosonde_auto_rx_tpu_torch.detect.prescreen import MARGIN, Prescreen
 from radiosonde_auto_rx_tpu_torch.detect.templates import (
     TEMPLATES, build_template_bank)
+from radiosonde_auto_rx_tpu_torch.ops.channelizer import _dtype_named
 from radiosonde_auto_rx_tpu_torch.ops.fir import (
     design_lowpass, fir_filter_block)
 from radiosonde_auto_rx_tpu_torch.ops.fm import (
@@ -33,6 +38,14 @@ LPIQ_BW = (6e3, 12e3, 22e3, 200e3)
 LPIQ_BW_LBAND = (20e3, 32e3, 200e3, 400e3)
 # FM-audio lowpass (dft_detect.c:148: 4k narrow, 10k wide)
 LPFM_BW = (4e3, 10e3)
+
+
+def stream_dtype() -> torch.dtype:
+    """dtype of the conditioned FM streams: ``RSX_DETECT_DTYPE=float32|
+    bfloat16`` forces; otherwise (the reference's ``auto``, which takes
+    bfloat16 only on a TPU) float32."""
+    forced = os.environ.get("RSX_DETECT_DTYPE")
+    return _dtype_named(forced) if forced else torch.float32
 
 
 class SondeDetector:
@@ -101,24 +114,25 @@ class SondeDetector:
         self._fm_groups = list(groups.values())
 
     def _condition(self, x):
-        """x: [C, 2, T] float32 planes -> list of FM streams [C, T] per
-        class: all IF lowpasses as one filter-bank pass over the stacked
-        re/im rows, one discriminator over the class-stacked planes, then
-        the FM lowpasses grouped by distinct taps."""
+        """x: [C, 2, T] planes -> list of FM streams [C, T] per class, in
+        ``stream_dtype()``: all IF lowpasses as one filter-bank pass over
+        the stacked re/im rows, one discriminator over the class-stacked
+        planes, then the FM lowpasses grouped by distinct taps."""
         C, _, T = x.shape
-        x = x.float()
+        sdt = stream_dtype()
+        x = x.to(sdt)
         out = [None] * len(self.classes)
         filt_idx = [i for i, cl in enumerate(self.classes)
                     if cl[0] is not None]
         if filt_idx:
             y = fir_filter_block(x.reshape(C * 2, T), self._h_if) \
                 .reshape(C, 2, len(filt_idx), T)
-            fmf = fm_discriminate_planes_mixed(y[:, 0], y[:, 1])  # [C,F,T]
+            fmf = fm_discriminate_planes_mixed(y[:, 0], y[:, 1], sdt)
             for fi, i in enumerate(filt_idx):
-                out[i] = fmf[:, fi]
+                out[i] = fmf[:, fi]                       # [C, T]
         for i, cl in enumerate(self.classes):
             if cl[0] is None:
-                out[i] = fm_discriminate_planes_mixed(x[:, 0], x[:, 1])
+                out[i] = fm_discriminate_planes_mixed(x[:, 0], x[:, 1], sdt)
         for h_fm, idxs in self._fm_groups:
             sub = torch.stack([out[i] for i in idxs],
                               dim=1).reshape(C * len(idxs), T)

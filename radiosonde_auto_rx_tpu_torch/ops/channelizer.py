@@ -5,18 +5,41 @@ branch filter is P shifted multiply-accumulates along the decimated
 time axis (branch axis REVERSED — see ``_channelize``), the cross-branch
 DFT a pair of real [N, N] matrix products.  Recentered single-channel
 extraction (``_extract``) runs one branch set of the same prototype on a
-wideband stream rotated by host-computed float64 phase tables.  All
-math is float32 (the reference's CPU dtype; its bf16 TPU variant is not
-ported).
+wideband stream rotated by host-computed float64 phase tables.
+
+The branch dtype (``_branch_dtype``, ``RSX_CHANNELIZER_DTYPE``, read at
+each call) is float32 unless the switch asks for bfloat16, the form the
+reference takes on its TPU: then the branch taps, the P shifted
+multiply-accumulates (each result rounded to bfloat16) and the DFT's
+operands are bfloat16, the DFT's products accumulate in float32, and
+the channel planes come out in bfloat16, as the reference's do.
 """
 
+import os
 from functools import lru_cache
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from radiosonde_auto_rx_tpu_torch.ops.fir import design_lowpass
+from radiosonde_auto_rx_tpu_torch.ops.fir import _full_fp32, design_lowpass
+
+
+def _branch_dtype() -> torch.dtype:
+    """dtype of the polyphase branches and of the channel planes:
+    ``RSX_CHANNELIZER_DTYPE=float32|bfloat16`` forces; otherwise (the
+    reference's ``auto``, which takes bfloat16 only on a TPU) float32."""
+    forced = os.environ.get("RSX_CHANNELIZER_DTYPE")
+    return _dtype_named(forced) if forced else torch.float32
+
+
+def _dtype_named(name: str) -> torch.dtype:
+    """A floating torch dtype by its NumPy/JAX name (``bfloat16``,
+    ``float32``)."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError(f"not a floating dtype: {name!r}")
+    return dt
 
 
 def pfb_prototype(n_chan: int, taps_per_branch: int = 12,
@@ -45,6 +68,16 @@ def _dft_mats_on(n: int, device: torch.device):
             torch.from_numpy(sinm).to(device))
 
 
+@lru_cache(maxsize=16)
+def _dft_pair_on(n: int, device: torch.device, dtype: torch.dtype):
+    """The cross-branch DFT as two [2N, N] operands in ``dtype``:
+    [yr | yi] @ [cos; sin] = zr and [yi | yr] @ [cos; -sin] = zi, so each
+    output is one product accumulated in float32 and rounded once."""
+    cosm, sinm = _dft_mats(n)
+    return (torch.from_numpy(np.concatenate([cosm, sinm])).to(device, dtype),
+            torch.from_numpy(np.concatenate([cosm, -sinm])).to(device, dtype))
+
+
 def _branch_mac(planes, hb):
     """Decimating FIR over the branch axis: planes [..., M, N], hb [P, N]
     (already reversed) -> y[..., m, r] = sum_p planes[m - p, r] hb[p, r]
@@ -68,17 +101,25 @@ def _channelize(x, h, n_chan: int):
     T = x.shape[-1] // n_chan * n_chan
     M = T // n_chan
     lead = x.shape[:-2]
+    ydt = _branch_dtype()
     # polyphase branches: branch r takes samples x[m*N + r]
-    xb = x[..., :T].float().reshape(*lead, 2, M, n_chan)
+    xb = x[..., :T].to(ydt).reshape(*lead, 2, M, n_chan)
     # prototype branch taps, branch axis REVERSED: with y[m] =
     # Σ_j h[j]·x[mN + (N−1) − j] (a true decimating FIR), the j = pN+s
     # component multiplies x[(m−p)N + r] for r = N−1−s, so branch r's
     # taps are h[pN + (N−1−r)].  The un-reversed form is exact at every
     # channel center but droops ~4 dB at ±25 kHz off center.
-    hb = h.reshape(P, n_chan).flip(1)
+    hb = h.reshape(P, n_chan).flip(1).to(ydt)
     y = _branch_mac(xb, hb)                                  # [..., 2, M, N]
     yr, yi = y[..., 0, :, :], y[..., 1, :, :]                # [..., M, N]
     # cross-branch DFT: z_k = sum_r y_r e^{-2πi rk/N}
+    if ydt != torch.float32:
+        opr, opi = _dft_pair_on(n_chan, x.device, ydt)
+        with _full_fp32():
+            zr = torch.cat([yr, yi], dim=-1) @ opr
+            zi = torch.cat([yi, yr], dim=-1) @ opi
+        return torch.stack([zr.transpose(-1, -2), zi.transpose(-1, -2)],
+                           dim=-2)                           # [..., N, 2, M]
     cosm, sinm = _dft_mats_on(n_chan, x.device)
     zr = yr @ cosm + yi @ sinm                               # [..., M, N]
     zi = yi @ cosm - yr @ sinm
@@ -143,17 +184,20 @@ def _extract(x, h, ph_m, ph_r, n_dec: int):
     prototype; ph_m: [S, T//n_dec], ph_r: [S, n_dec] rotation phases
     (cycles).
 
-    Returns [S, 2, T//n_dec] recentered decimated channel planes: each
-    slot rotates its stream DOWN by its frequency (e^{-j2πf n}) and
+    Returns [S, 2, T//n_dec] recentered decimated channel planes in the
+    branch dtype: each slot rotates its stream DOWN by its frequency
+    (e^{-j2πf n}; float32, then rounded to the branch dtype) and
     decimates through the prototype's polyphase branches, then sums the
-    branches (the channel-0 row of the cross-branch DFT).  At a channel
-    center this reproduces that ``_channelize`` row.
+    branches (the channel-0 row of the cross-branch DFT, accumulated in
+    float32).  At a channel center this reproduces that ``_channelize``
+    row.
     """
     P = h.shape[0] // n_dec
     T = x.shape[-1] // n_dec * n_dec
     M = T // n_dec
     S = x.shape[0]
-    hb = h.reshape(P, n_dec).flip(1)                         # [P, N]
+    ydt = _branch_dtype()
+    hb = h.reshape(P, n_dec).flip(1).to(ydt)                 # [P, N]
     tau = float(np.float32(2.0 * np.pi))
     cm, sm = torch.cos(ph_m * tau), torch.sin(ph_m * tau)    # [S, M]
     cr, sr = torch.cos(ph_r * tau), torch.sin(ph_r * tau)    # [S, N]
@@ -164,7 +208,7 @@ def _extract(x, h, ph_m, ph_r, n_dec: int):
     # rotate DOWN by f: (re + j·im)·(c - j·s)
     re = xb[:, 0] * c + xb[:, 1] * s                         # [S, M, N]
     im = xb[:, 1] * c - xb[:, 0] * s
-    y = _branch_mac(torch.stack([re, im], dim=1), hb)        # [S, 2, M, N]
+    y = _branch_mac(torch.stack([re, im], dim=1).to(ydt), hb)  # [S,2,M,N]
     return y.sum(dim=-1)                                     # [S, 2, M]
 
 

@@ -13,11 +13,19 @@ so the taps are reversed, as ``lax.conv_general_dilated`` is fed in the
 reference).  On a CUDA tensor conv1d goes through cuDNN, which computes
 float32 convolutions in TF32 (about three decimal digits) unless
 ``torch.backends.cudnn.allow_tf32`` is False; ``_full_fp32`` clears that
-flag, and cuBLAS's (``torch.backends.cuda.matmul.allow_tf32``, for the
-correlations' matmuls), for the call and restores them, so the filters
-are full float32 whatever the caller set.  The reference's blocked-Toeplitz form of
-``fir_filter_block`` exists to fill a TPU's matrix unit; here the bank
-is one multi-output convolution with the same result.
+flag, cuBLAS's (``torch.backends.cuda.matmul.allow_tf32``, for the
+correlations' matmuls) and cuBLAS's bfloat16 reduced-precision
+reduction (``allow_bf16_reduced_precision_reduction``, so a bfloat16
+product accumulates in float32, as the reference's
+``preferred_element_type=float32`` asks) for the call and restores
+them, whatever the caller set.  ``fir_filter_block`` computes in its
+input's dtype, as the reference's does: bfloat16 rows (the detector's
+``RSX_DETECT_DTYPE`` streams) take bfloat16 taps and give bfloat16
+output, accumulated in float32; every other input is float32.  The
+reference's blocked-Toeplitz form of it (``_toeplitz_rows`` and the
+stride-``block`` convolution, and ``_conv_same`` beside it) is a
+formulation that fills a TPU's matrix unit with the same result; here
+the bank is one multi-output convolution.
 """
 
 from contextlib import contextmanager
@@ -69,34 +77,41 @@ def design_lowpass_for_transition(cutoff_norm: float,
 
 @contextmanager
 def _full_fp32():
-    """cuDNN convolutions and cuBLAS matmuls in full float32 (no TF32)
-    inside the block, whatever the caller set."""
-    prev_conv = torch.backends.cudnn.allow_tf32
-    prev_mm = torch.backends.cuda.matmul.allow_tf32
+    """cuDNN convolutions and cuBLAS matmuls in full float32 (no TF32),
+    and bfloat16 matmuls accumulated in float32, inside the block,
+    whatever the caller set."""
+    mm = torch.backends.cuda.matmul
+    prev = (torch.backends.cudnn.allow_tf32, mm.allow_tf32,
+            mm.allow_bf16_reduced_precision_reduction)
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    mm.allow_tf32 = False
+    mm.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev_conv
-        torch.backends.cuda.matmul.allow_tf32 = prev_mm
+        (torch.backends.cudnn.allow_tf32, mm.allow_tf32,
+         mm.allow_bf16_reduced_precision_reduction) = prev
 
 
 def fir_filter_block(x, hs, stride: int = 1):
     """Filter [C, T] (or [T]) by a bank ``hs`` [F, K] (or [K]) ->
-    [C, F, T'] float32, group-delay aligned:
+    [C, F, T'], group-delay aligned:
     y[c, f, i] = sum_k h[f, k] x[c, i*stride + (K-1)//2 - k] (zeros
     outside), the 'same'-length filter's every ``stride``-th sample
-    (T' = ceil(T/stride)); the decimation is the convolution's stride."""
+    (T' = ceil(T/stride)); the decimation is the convolution's stride.
+    bfloat16 input is filtered by bfloat16 taps into bfloat16 output
+    (float32 accumulation); any other input in float32."""
     squeeze = x.dim() == 1
     if squeeze:
         x = x[None, :]
-    hs = _taps_tensor(hs, x.device)
+    if x.dtype != torch.bfloat16:
+        x = x.float()
+    hs = _taps_tensor(hs, x.device).to(x.dtype)
     if hs.dim() == 1:
         hs = hs[None, :]
     K = hs.shape[-1]
     d = (K - 1) // 2
-    xp = F.pad(x.float()[:, None, :], (d, K - 1 - d))
+    xp = F.pad(x[:, None, :], (d, K - 1 - d))
     with _full_fp32():
         y = F.conv1d(xp, hs.flip(-1)[:, None, :], stride=int(stride))
     return y[0] if squeeze else y

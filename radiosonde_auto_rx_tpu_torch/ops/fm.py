@@ -6,8 +6,10 @@ Port of ``radiosonde_auto_rx_tpu/ops/fm.py`` (``FM_GAIN``,
 ``dc_offset``):
     s_fm[t] = gain * arg( z[t] * conj(z[t-1]) ) / pi,   gain = 0.8
 i.e. instantaneous frequency normalised to +/-1 at Nyquist, times 0.8.
-The port computes in float32 throughout, so the reference's output-dtype
-argument (bf16 streams on a TPU) has no counterpart here.
+``fm_discriminate_planes_mixed`` takes the reference's ``out_dtype``:
+the detector's bfloat16 streams (``RSX_DETECT_DTYPE``) are its output
+in that dtype, with the products in the planes' dtype and ``atan2`` in
+float32.
 """
 
 import math
@@ -25,15 +27,18 @@ def fm_discriminate(z, gain: float = FM_GAIN):
     return ((gain / math.pi) * torch.atan2(w.imag, w.real)).float()
 
 
-def fm_discriminate_planes_mixed(re, im):
-    """The discriminator on separate re/im rows [..., T] -> [..., T]
-    float32 FM audio (first sample 0): the detector's conditioning path
-    (``detect/scanner.py``)."""
+def fm_discriminate_planes_mixed(re, im, out_dtype=torch.float32):
+    """The discriminator on separate re/im rows [..., T] -> [..., T] FM
+    audio in ``out_dtype`` (first sample 0): the products in the rows'
+    dtype, ``atan2`` on float32 inputs, the scaled result cast to
+    ``out_dtype`` — the detector's conditioning path
+    (``detect/scanner.py``, ``detect/prescreen.py``)."""
     rp = torch.cat([re[..., :1], re[..., :-1]], dim=-1)
     ip = torch.cat([im[..., :1], im[..., :-1]], dim=-1)
     wr = re * rp + im * ip
     wi = im * rp - re * ip
-    return (FM_GAIN / math.pi) * torch.atan2(wi.float(), wr.float())
+    return ((FM_GAIN / math.pi) * torch.atan2(
+        wi.float(), wr.float())).to(out_dtype)
 
 
 def fm_discriminate_planes(x):

@@ -31,7 +31,9 @@ from radiosonde_auto_rx_tpu_torch.parallel.mesh import (
 
 def scan(cfg, x, state, n_blocks: int, buffered: bool = True):
     """The demod scan on x's device: one launch of the scan kernel on a
-    CUDA tensor, its plain twin ``fsk_scan_ref`` on a CPU one."""
+    CUDA tensor, its plain twin ``fsk_scan_ref`` on a CPU one; bf16
+    planes are read as a float32 copy."""
+    x = x.float()
     if x.device.type == "cpu":
         return fsk_scan_ref(cfg, x, state, n_blocks, buffered=buffered)
     return fsk_scan(cfg, x.contiguous(), state, n_blocks,

@@ -45,7 +45,7 @@ import torch.nn.functional as F
 from radiosonde_auto_rx_tpu_torch.demod.fsk import (
     fsk_demod_stream, fsk_init_state, fsk_num_blocks_buffered)
 from radiosonde_auto_rx_tpu_torch.detect.correlator import (
-    _correlate_peaks_exact, decide_from_peaks)
+    _correlate_peaks, decide_from_peaks)
 from radiosonde_auto_rx_tpu_torch.detect.psd import _welch
 from radiosonde_auto_rx_tpu_torch.detect.prescreen import Prescreen
 from radiosonde_auto_rx_tpu_torch.detect.scanner import (
@@ -53,7 +53,7 @@ from radiosonde_auto_rx_tpu_torch.detect.scanner import (
 from radiosonde_auto_rx_tpu_torch.detect.templates import TEMPLATES
 from radiosonde_auto_rx_tpu_torch.models.imet4 import afsk_fm_audio
 from radiosonde_auto_rx_tpu_torch.ops.channelizer import (
-    _channelize, _extract, pfb_prototype)
+    _branch_dtype, _channelize, _extract, pfb_prototype)
 from radiosonde_auto_rx_tpu_torch.ops.fm import FM_GAIN
 from radiosonde_auto_rx_tpu_torch.ops.resample import (
     rational_ratio, resample_planes)
@@ -171,6 +171,8 @@ class StationStep:
         return self._kit(self.mesh.device(c))
 
     def _channels(self, wide):
+        """Channel rows [B*N, 2, T//N] of ``wide`` in the branch dtype
+        (``wide`` already cast to it)."""
         B, _, T = wide.shape
         if T % self.n_chan:
             raise ValueError("capture length must be a multiple of n_chan")
@@ -194,7 +196,10 @@ class StationStep:
     # ------------------------------------------------------------------ #
 
     def analyze(self, wide, screen: bool = True):
-        """wide [B, 2, T] f32 planes -> (channels [B*N, 2, T//N],
+        """wide [B, 2, T] f32 planes -> (channels [B*N, 2, T//N] in the
+        branch dtype (``RSX_CHANNELIZER_DTYPE``: the block is cast to it
+        once, for the channelizer and the PSD, whose K2 launch reads a
+        float32 copy of a bfloat16 block),
         psd [B, nfft] (sparse Welch, one nfft window per 4*nfft),
         ratios).  ``screen=True`` also runs the half-rate prescreen over
         every DC-blocked channel: ratios [B*N, K_total] in
@@ -207,6 +212,7 @@ class StationStep:
         channels (STREAM), psd and ratios (ROWS)."""
         if self.mesh.size > 1:
             return self._analyze_sharded(wide, screen)
+        wide = wide.to(_branch_dtype())
         chf = self._channels(wide)
         psd = _welch(wide, self.nfft, hop=4 * self.nfft)
         if not screen:
@@ -217,6 +223,8 @@ class StationStep:
     def _analyze_sharded(self, wide, screen: bool):
         mesh, N, Pp, n_t = self.mesh, self.n_chan, self.pfb_p, self.n_t
         wl = wide if isinstance(wide, dict) else shard(wide, mesh, STREAM)
+        bdt = _branch_dtype()
+        wl = {c: w.to(bdt) for c, w in wl.items()}
         if any(w.shape[-1] % N for w in wl.values()):
             raise ValueError("t-shard must be a multiple of n_chan")
         if n_t == 1:
@@ -295,7 +303,7 @@ class StationStep:
         if scan:
             chf, psd, _ = self.analyze(wide, screen=False)
         else:
-            chf, psd = self._channels(wide), None
+            chf, psd = self._channels(wide.to(_branch_dtype())), None
         rows = np.asarray(rows)
         keep = np.flatnonzero(rows < chf.shape[0])
         if keep.size:
@@ -308,7 +316,7 @@ class StationStep:
                 torch.from_numpy(np.asarray(ph_r)[keep]).to(dev),
                 self.n_chan)
             chf.index_copy_(0, torch.from_numpy(
-                rows[keep].astype(np.int64)).to(dev), ext)
+                rows[keep].astype(np.int64)).to(dev), ext.to(chf.dtype))
         idx = torch.from_numpy(np.asarray(idx, np.int64)).to(self.device)
         outs = {}
         off = 0
@@ -363,9 +371,10 @@ class StationStep:
         # same DC block as SondeDetector.detect's entry
         mine = mine - torch.mean(mine, dim=-1, keepdim=True) * 0.98
         streams = det._condition(mine)                # per class [S, T]
-        peaks = [_correlate_peaks_exact(fm, bank, lens)
+        peaks = [_correlate_peaks(fm, bank, lens)
                  for fm, (_, _, _, bank, lens) in zip(streams, det.classes)]
-        return dict(streams=torch.stack(streams), peaks=peaks)
+        return dict(streams=torch.stack([s.float() for s in streams]),
+                    peaks=peaks)
 
     def _confirm_sharded(self, channels, slot_cids):
         mesh, cap, n_t = self.mesh, self.conf_cap, self.n_t

@@ -21,6 +21,10 @@ CLI::
 CSV: ``type,chain,ebno_db,trials,detections,mean_score`` (the port's rows
 labelled ``torch``)
 (type=NOISE rows carry the false-positive count in ``detections``).
+The detector's switches select the forms it scores
+(``RSX_DETECT_DTYPE=bfloat16`` the bf16 streams, ``RSX_DETECT_CORR``,
+``RSX_DETECT_PEAKS``); the CSV goes only where ``-o`` points (stdout
+without it), never to the JAX package's ``docs/detect_scores*.csv``.
 """
 
 import argparse

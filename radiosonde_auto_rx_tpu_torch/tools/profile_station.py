@@ -9,9 +9,12 @@ Times each device stage of the production dataflow in isolation, at the
 reference tool's geometry (``B`` captures of ``T_WIDE`` samples, 50
 channels): channelize, the sparse Welch PSD (one window per 4·nfft; K2),
 the detector's half-rate prescreen scores on the duty cycle's channels,
-the full detection pass on ``CAP`` channels (conditioning, then the exact
-correlation peak search per template class) and the buffered FSK demod
-of every channel (one launch of the scan kernel ``fsk_scan``).
+the full detection pass on ``CAP`` channels (conditioning, then the
+correlation peak search per template class, ``correlator._correlate_peaks``)
+and the buffered FSK demod of every channel (one launch of the scan
+kernel ``fsk_scan``).  The detector's and the channelizer's switches
+(``RSX_DETECT_DTYPE``, ``RSX_DETECT_CORR``, ``RSX_DETECT_PEAKS``,
+``RSX_CHANNELIZER_DTYPE``) select the forms the stages time.
 
 ``--device`` (default ``cuda``): on a CUDA device each stage is timed
 with CUDA events around ``REPS`` calls queued behind a device spin, so
@@ -31,8 +34,7 @@ import torch
 
 from radiosonde_auto_rx_tpu_torch import kernels
 from radiosonde_auto_rx_tpu_torch.demod.fsk import FSKConfig, fsk_demod_stream
-from radiosonde_auto_rx_tpu_torch.detect.correlator import \
-    _correlate_peaks_exact
+from radiosonde_auto_rx_tpu_torch.detect.correlator import _correlate_peaks
 from radiosonde_auto_rx_tpu_torch.detect.psd import _welch
 from radiosonde_auto_rx_tpu_torch.detect.scanner import SondeDetector
 from radiosonde_auto_rx_tpu_torch.ops.channelizer import (_channelize,
@@ -156,7 +158,7 @@ def stages(device, wide) -> list:
         acc = torch.zeros((), device=device)
         for fm, (_, _, _, bank, lens) in zip(det._condition(chf[:CAP]),
                                              det.classes):
-            val, ipk, dcpk, xm = _correlate_peaks_exact(fm, bank, lens)
+            val, ipk, dcpk, xm = _correlate_peaks(fm, bank, lens)
             acc = acc + val.max() + xm.sum()
         return acc
 

@@ -173,6 +173,38 @@ print(json.dumps(out))
 """
 
 
+# the four switches at the reference's TPU choices; two are read when
+# the correlator is imported, so they are set before anything imports it
+FORMS = dict(RSX_CHANNELIZER_DTYPE="bfloat16", RSX_DETECT_DTYPE="bfloat16",
+             RSX_DETECT_CORR="toeplitz", RSX_DETECT_PEAKS="blocknorm")
+
+FORMS_CHILD = f"import os\nos.environ.update({FORMS!r})\n" + BLOCKER + r"""
+from radiosonde_auto_rx_tpu_torch.detect import correlator
+from radiosonde_auto_rx_tpu_torch.detect.scanner import stream_dtype
+from radiosonde_auto_rx_tpu_torch.ops.channelizer import _branch_dtype
+from radiosonde_auto_rx_tpu_torch.parallel.station_step import StationStep
+
+planes = []
+analyze = StationStep.analyze
+StationStep.analyze = lambda self, *a, **k: (
+    lambda r: (planes.append(str(r[0].dtype)), r)[1])(analyze(self, *a, **k))
+n, fs = 8, 384_000
+stream = cs.synth_stream(n, fs, 4)
+results, launches = cs.drive_station(
+    torch.device("cpu"), [cs.split_blocks(stream, fs, 2)], n, fs,
+    manual=False)
+st, telems, _ = results[0]
+out = dict(seen=cs.check_telemetry(telems, n, fs, ("RS41", "DFM")),
+           detections=st.stats["detections"],
+           forms=[correlator._corr_method(), correlator._peaks_method(),
+                  str(stream_dtype()), str(_branch_dtype())],
+           planes=sorted(set(planes)))
+out["blocked"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in BLOCKED)
+print(json.dumps(out))
+"""
+
+
 def _child(code):
     res = subprocess.run([sys.executable, "-c", code, str(ROOT)],
                          capture_output=True, text=True, timeout=300,
@@ -247,6 +279,20 @@ def test_tools_run_without_jax():
     assert len(out["stages"]) == 5 and \
         set(out["stages"].values()) == {"cpu"}
     assert out["trace"] == ["trace.json"]
+
+
+def test_tpu_forms_run_without_jax():
+    """The station under the four switches at the reference's TPU
+    choices (bf16 branches and streams, Toeplitz correlation,
+    block-normalized peaks), with no task: it finds and decodes the
+    three sondes."""
+    out = _child(FORMS_CHILD)
+    assert out["blocked"] == []
+    assert out["forms"] == ["toeplitz", "blocknorm", "torch.bfloat16",
+                            "torch.bfloat16"]
+    assert out["planes"] == ["torch.bfloat16"]
+    assert out["detections"] == 3
+    assert len(out["seen"]) == 3 and all(v > 0 for v in out["seen"].values())
 
 
 def _shadowed(tmp_path):
@@ -326,3 +372,22 @@ def test_no_jax_import_in_port_sources():
     assert len(files) > 10
     bad = [str(f) for f in files if pat.search(f.read_text())]
     assert bad == []
+
+
+def test_dcn_probe_runs_without_jax(tmp_path):
+    """``python -m radiosonde_auto_rx_tpu_torch.tools.dcn_probe --device
+    cpu`` with ``jax`` and the JAX package shadowed (its two spawned workers
+    inherit the path): two gloo processes, the reference's keys."""
+    run = tmp_path / "run"
+    run.mkdir()
+    res = subprocess.run(
+        [sys.executable, "-m", "radiosonde_auto_rx_tpu_torch.tools.dcn_probe",
+         "--device", "cpu", "-o", "fit.json"], capture_output=True,
+        text=True, timeout=300, cwd=run, env=_shadowed(tmp_path))
+    assert res.returncode == 0, res.stderr[-4000:]
+    out = json.loads((run / "fit.json").read_text())
+    assert set(out) == {"transport", "ppermute", "all_to_all",
+                        "psum_scalar_s"}
+    assert "gloo" in out["transport"] and out["psum_scalar_s"] > 0
+    for k in ("ppermute", "all_to_all"):
+        assert set(out[k]["points"]) == {"65536", "1048576", "8388608"}
