@@ -217,14 +217,35 @@ Phases, in order; any failure raises (non-zero exit, traceback):
    gloo processes on the host's CPU) exits 0; its fit is printed; on a
    host with one GPU the probe's default (``--device cuda``: NCCL, one
    GPU a process) exits 1 and says why.
+14. The repository's two drivers.  (a) ``python -m
+   radiosonde_auto_rx_tpu_torch.bench`` as a child, as a user runs it:
+   its one JSON line has every key (``BENCH_KEYS``), every number
+   finite and positive, each program's wall ms at or above its device
+   ms (``WALL_SLACK``), and the launches a step of ``bench_plan`` (one
+   scan a type group, K2 once on a step that scans); the line is
+   printed.  (b) its ``--ablate`` table; (c) ``--scaling`` over the
+   visible GPUs (one GPU: the 1-GPU rate alone).  (d)
+   ``graft_entry.entry()`` on the card against the same step on the
+   CPU: bits equal, soft within ``ENTRY_TOL`` of its peak, one
+   unbuffered scan launch.  (e) ``graft_entry.dryrun_multichip(8)`` over
+   a virtual mesh of the card (8 shards on the one GPU): its own value
+   checks, the stage pipeline's 4 unbuffered scan launches, K2 and the
+   buffered scan inside the shards; its OK line is printed.  (f) The
+   scan kernel against its twin on the card at every shape the bench's
+   programs give it at the card's geometry (recorded from one call of
+   each program): the headline's 512 channels x 4 s on the bench's own
+   input, the r3 model's 500 channels, and each type group of the
+   production and steady programs on modulated signals of their shapes;
+   ``scan_diff``'s checks from the initial and from a carried state.
 
 The second-to-last line is a JSON object of per-kernel results (times
 at the main path's shapes, bound, library-call time, the largest error
 of all the checks; launches: the scan's and K2's on the detection path
 (and by phase-8, phase-9 and phase-10 drive, phase 6's split dispatch,
-phase 11's tools, phase 12's meshes and phase 13's TPU forms), the
-unbuffered scan's in
-phase 10's demod CLI run (and phase 12's pipeline), K1's and K3's in
+phase 11's tools, phase 12's meshes, phase 13's TPU forms and phase
+14's bench programs a step and dryrun), the unbuffered scan's in
+phase 10's demod CLI run (and phase 12's pipeline, phase 14's entry and
+dryrun), K1's and K3's in
 their own phases, through
 their entry points; every kernel also lists each shape timed),
 the last line ``{"ok": true, "device": {...}}``.
@@ -312,14 +333,6 @@ STATION_CFG = {"station_lat": 0.0, "station_lon": 0.0,
 LBAND = 1680.0e6
 CARRIER_LEVEL = 0.05
 RATIO_TOL = 1e-3
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------- #
@@ -2751,6 +2764,263 @@ def forms_phase(dev, card, stream, d_results, f32_profile=None):
 
 
 # ---------------------------------------------------------------------- #
+# phase 14: the repository's two drivers (the bench and the entry points)
+
+DRIVER_TIMEOUT = 400
+# a program's wall ms and its device ms are two timings of the same
+# calls: the wall may read below the device time by this share of clock
+# noise where the device sets the pace
+WALL_SLACK = 0.02
+ENTRY_TOL = 1e-4
+# the bench's JSON keys (the reference's names, without XLA's
+# cost-analysis keys; each program's wall ms, device ms, clock and
+# launches a step)
+BENCH_PROGRAMS = ("demod", "production", "steady", "steady_noscan",
+                  "r3_allch")
+BENCH_KEYS = frozenset((
+    "station_step_msps_production", "station_step_msps_wideband",
+    "bench_schema", "station_step_vs_baseline", "station_step_ms",
+    "station_step_model", "station_step_msps_steady",
+    "station_step_ms_steady", "station_step_msps_steady_noscan",
+    "station_step_ms_steady_noscan", "station_step_ms_steady_duty4",
+    "station_step_msps_wideband_r3_allch_model",
+    "hbm_sustained_gbps_measured", "detect_duty", "detect_full_pass_cap",
+    "station_step_least_bytes_r3", "station_step_hbm_pct_h100_least_bytes",
+    "device", "geometry",
+    *(f"{p}_{k}" for p in BENCH_PROGRAMS
+      for k in ("wall_ms", "device_ms", "clock", "launches"))))
+
+
+def bench_plan(n_groups: int) -> dict:
+    """The port kernels one step of each bench program launches: the
+    scan once a type group (``n_groups`` in the station programs; the
+    demod program and the r3 model demodulate one), K2 once on a step
+    that scans the PSD, nothing else."""
+    scans = dict(demod=1, production=n_groups, steady=n_groups,
+                 steady_noscan=n_groups, r3_allch=1)
+    k2 = dict(demod=0, production=1, steady=1, steady_noscan=0, r3_allch=1)
+    return {p: dict(freq_est_sf=0, fft_abs2=k2[p], fft=0, fsk_scan=scans[p],
+                    fsk_scan_unbuffered=0) for p in BENCH_PROGRAMS}
+
+
+def check_bench_line(res, n_groups: int):
+    """The bench's JSON line from a card: every key; every number finite
+    and positive (no device metric missing); each program's wall ms not
+    below its device ms (by more than ``WALL_SLACK``); the launches a
+    step as ``bench_plan`` says."""
+    if set(res) != {"metric", "value", "unit", "vs_baseline", "extra"} or \
+            res["metric"] != "fsk_demod_iq_throughput":
+        raise AssertionError(f"bench line: {sorted(res)}")
+    ex = res["extra"]
+    if set(ex) != BENCH_KEYS:
+        raise AssertionError(f"bench keys: missing "
+                             f"{sorted(BENCH_KEYS - set(ex))}, extra "
+                             f"{sorted(set(ex) - BENCH_KEYS)}")
+    nums = {k: v for k, v in ex.items()
+            if not isinstance(v, (str, dict))}
+    nums.update(value=res["value"], vs_baseline=res["vs_baseline"])
+    bad = {k: v for k, v in nums.items()
+           if not isinstance(v, (int, float)) or not np.isfinite(v)
+           or v <= 0}
+    if bad:
+        raise AssertionError(f"bench values not finite and positive: {bad}")
+    for p, want in bench_plan(n_groups).items():
+        wall, dev = ex[f"{p}_wall_ms"], ex[f"{p}_device_ms"]
+        if wall < dev * (1 - WALL_SLACK):
+            raise AssertionError(f"bench {p}: wall {wall} ms below its "
+                                 f"device {dev} ms ({ex[f'{p}_clock']})")
+        if ex[f"{p}_launches"] != want:
+            raise AssertionError(f"bench {p}: launches "
+                                 f"{ex[f'{p}_launches']}, want {want}")
+
+
+@contextmanager
+def scan_shapes(tag: list):
+    """Records every buffered ``fsk_scan`` launch in a ``with`` (a
+    recorder in both modules that call it: ``demod/fsk.py``'s
+    ``fsk_demod_stream`` and ``parallel/pipeline.py``'s ``scan``): yields
+    a dict (configuration, channels, samples, demod blocks) -> the names
+    that ``tag[0]`` held at its launches."""
+    from radiosonde_auto_rx_tpu_torch.demod import fsk
+    from radiosonde_auto_rx_tpu_torch.parallel import pipeline
+    orig, shapes = fsk.fsk_scan, {}
+
+    def recorded(cfg, x, state, n_blocks, probe=False, buffered=True):
+        if buffered:
+            key = (cfg, x.shape[0], x.shape[-1], n_blocks)
+            shapes.setdefault(key, []).append(tag[0])
+        return orig(cfg, x, state, n_blocks, probe, buffered)
+    fsk.fsk_scan = pipeline.fsk_scan = recorded
+    try:
+        yield shapes
+    finally:
+        fsk.fsk_scan = pipeline.fsk_scan = orig
+
+
+def check_bench_scans(dev):
+    """Phase 14 (f): the scan kernel against its twin, both on the card,
+    at every shape the bench's programs give it at the card's geometry
+    (``bench.CARD``; recorded from one call of each program): on the
+    bench's own input for the headline demod, on ``bench.make_input``'s
+    2FSK for the other shapes of the bench's RS41 configuration (the r3
+    model's channels, the RS41 group), on ``fsk_signal``'s for the other
+    chains (the station programs' Gaussian-noise captures leave the tone
+    and bit decisions undefined, so they are not the inputs held here);
+    ``scan_diff``'s checks with the probe outputs from the initial state,
+    then from the twin's final state.  Returns (largest soft error, a row
+    a shape)."""
+    import torch
+    from radiosonde_auto_rx_tpu_torch import bench
+    from radiosonde_auto_rx_tpu_torch.demod import fsk
+    geo, cfg = bench.CARD, bench._cfg()
+    C, T = geo.demod_channels, geo.demod_samples
+    x = bench.make_input(cfg, C, T, dev)
+    wide = bench._wide(geo.B, geo.t_wide, dev)
+    tag = [None]
+    with scan_shapes(tag) as shapes:
+        tag[0] = "demod"
+        bench.demod_program(cfg, C, dev)(x)
+        tag[0] = "production"
+        bench.production_program(dev, geo.B, geo.t_wide, geo.n_cand)[0](wide)
+        for tag[0], psd in (("steady", True), ("steady_noscan", False)):
+            bench.steady_program(dev, geo.B, geo.t_wide, psd)(wide)
+        tag[0] = "r3_allch"
+        bench.AllChannelModel(dev, geo.B, geo.t_wide_r3).step(
+            wide if geo.t_wide_r3 == geo.t_wide
+            else bench._wide(geo.B, geo.t_wide_r3, dev))
+    del wide
+    headline = (cfg, C, T, bench.fsk_num_blocks_buffered(cfg, T))
+    if headline not in shapes:
+        raise AssertionError(f"phase 14 (f): the headline's scan {headline}"
+                             f" not among the recorded {list(shapes)}")
+    worst, rows = 0.0, []
+    for seed, (key, programs) in enumerate(shapes.items()):
+        c_cfg, c, t, nb = key
+        if key == headline:
+            xs, src = x, "the bench's input"
+        elif c_cfg == cfg:
+            xs, src = bench.make_input(c_cfg, c, t, dev), "make_input"
+        else:
+            xs = torch.from_numpy(fsk_signal(c_cfg, c, t, seed)).to(dev)
+            src = "fsk_signal"
+        what = (f"phase 14 (f) {'/'.join(sorted(set(programs)))} C={c} "
+                f"T={t} fs={c_cfg.fs} rs={c_cfg.rs}")
+        st0 = fsk.fsk_init_state(c_cfg, c, dev)
+        want = fsk.fsk_scan_ref(c_cfg, xs, st0, nb, probe=True)
+        err = scan_diff(fsk.fsk_scan(c_cfg, xs, st0, nb, probe=True), want,
+                        what)
+        st1 = want[0]
+        err = max(err, scan_diff(fsk.fsk_scan(c_cfg, xs, st1, nb),
+                                 fsk.fsk_scan_ref(c_cfg, xs, st1, nb),
+                                 f"{what}, carried state"))
+        peak = float(want[1]["soft"].abs().max())
+        print(f"{what} blocks={nb} ({src}): bits, f_est, ptr, nin equal; "
+              f"soft max_abs_err={err:.3e} (peak {peak:.3f}, tol "
+              f"{SCAN_TOL} of peak; also sf, tmag, timing, Eb/N0; initial "
+              f"and carried state; twin on the card)")
+        worst = max(worst, err)
+        rows.append(dict(programs=sorted(set(programs)), channels=c,
+                         samples=t, blocks=nb, fs=c_cfg.fs, rs=c_cfg.rs,
+                         input=src, max_abs_err=err))
+    return worst, rows
+
+
+def run_driver(*args) -> str:
+    """``python -m <args>`` from the repository's root, as a user runs
+    it; its standard output (a non-zero exit raises)."""
+    res = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                         text=True, timeout=DRIVER_TIMEOUT,
+                         cwd=Path(__file__).resolve().parent)
+    if res.returncode != 0:
+        raise AssertionError(f"phase 14: python -m {' '.join(args)} exited "
+                             f"{res.returncode}\n{res.stderr[-4000:]}")
+    return res.stdout
+
+
+def drivers_phase(dev, card):
+    """Phase 14: (a) ``python -m radiosonde_auto_rx_tpu_torch.bench`` as
+    a child: its one JSON line checked by ``check_bench_line`` and
+    printed; (b) its ``--ablate`` table; (c) ``--scaling`` over the
+    visible GPUs; (d) ``graft_entry.entry()`` on the card against the
+    same step on the CPU (bits equal, soft within ``ENTRY_TOL`` of its
+    peak, one unbuffered scan launch); (e) ``graft_entry.
+    dryrun_multichip(8)`` over a virtual mesh of the card (counters
+    zeroed just before (d) and (e), read just after); (f) the scan
+    kernel at the bench programs' shapes (``check_bench_scans``)."""
+    import torch
+    from radiosonde_auto_rx_tpu_torch import bench, graft_entry, kernels
+    t_phase = time.perf_counter()
+    lines = run_driver("radiosonde_auto_rx_tpu_torch.bench").splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"phase 14 (a): {len(lines)} lines: {lines}")
+    res = json.loads(lines[0])
+    check_bench_line(res, len(set(bench.ACTIVES)))
+    geo = res["extra"]["geometry"]
+    cfg = bench._cfg()
+    nb = bench.fsk_num_blocks_buffered(cfg, geo["demod_samples"])
+    b_ms, b_by = scan_bound(cfg, geo["demod_channels"], nb,
+                            geo["demod_samples"])
+    print(f"phase 14 (a) python -m radiosonde_auto_rx_tpu_torch.bench "
+          f"({card}), every key finite and positive, wall >= device ms, "
+          f"launches a step as planned; the headline scan "
+          f"({geo['demod_channels']} channels x {nb} demod blocks) bound "
+          f"{b_ms:.5f} ms ({b_by}), device "
+          f"{res['extra']['demod_device_ms']:.4f} ms:")
+    print(lines[0])
+    table = run_driver("radiosonde_auto_rx_tpu_torch.bench", "--ablate")
+    print(f"phase 14 (b) python -m radiosonde_auto_rx_tpu_torch.bench "
+          f"--ablate ({card}):")
+    print(table.rstrip())
+    out = run_driver("radiosonde_auto_rx_tpu_torch.bench", "--scaling")
+    scal = json.loads(out.strip().splitlines()[-1])
+    if scal["extra"]["ndev"] != torch.cuda.device_count() or \
+            not scal["value"] > 0 or \
+            not scal["extra"]["headline"]["msps_1dev"] > 0:
+        raise AssertionError(f"phase 14 (c): {scal}")
+    print(f"phase 14 (c) python -m radiosonde_auto_rx_tpu_torch.bench "
+          f"--scaling over {torch.cuda.device_count()} GPU(s): "
+          f"{json.dumps(scal)}")
+
+    fn, args = graft_entry.entry(dev)
+    kernels.reset_launches()
+    soft, bits = fn(*args)
+    torch.cuda.synchronize()
+    entry_launches = dict(kernels.launches)
+    cfn, cargs = graft_entry.entry(torch.device("cpu"))
+    csoft, cbits = cfn(*cargs)
+    err = float((soft.cpu() - csoft).abs().max() / csoft.abs().max())
+    want = dict(freq_est_sf=0, fft_abs2=0, fft=0, fsk_scan=1,
+                fsk_scan_unbuffered=1)
+    if entry_launches != want or not torch.equal(bits.cpu(), cbits) or \
+            err > ENTRY_TOL:
+        raise AssertionError(f"phase 14 (d): launches {entry_launches}, "
+                             f"bits equal {torch.equal(bits.cpu(), cbits)}"
+                             f", soft {err:.2e} of its peak")
+    print(f"phase 14 (d) graft_entry.entry() on the card: soft/bits "
+          f"{tuple(soft.shape)}, the CPU step's bits, soft within "
+          f"{err:.2e} of its peak, launches {entry_launches}")
+
+    kernels.reset_launches()
+    dry = graft_entry.dryrun_multichip(8, [dev] * 8)
+    torch.cuda.synchronize()
+    dry_launches = dict(kernels.launches)
+    # the stage pipeline's 4 microbatches take the unbuffered scan
+    if dry_launches["fsk_scan"] <= 0 or dry_launches["fft_abs2"] <= 0 or \
+            dry_launches["fsk_scan_unbuffered"] != 4 or \
+            dry_launches["freq_est_sf"]:
+        raise AssertionError(f"phase 14 (e): launches {dry_launches}")
+    print(f"phase 14 (e) graft_entry.dryrun_multichip(8) over a virtual "
+          f"mesh of {dev}: launches {dry_launches}")
+
+    scan_err, scan_rows = check_bench_scans(dev)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 14 took {seconds:.1f} s")
+    return dict(bench=res, scaling=scal, entry_launches=entry_launches,
+                dryrun_launches=dry_launches, dryrun_line=dry["line"],
+                scan_err=scan_err, scan_shapes=scan_rows, seconds=seconds)
+
+
+# ---------------------------------------------------------------------- #
 
 def main() -> int:
     import torch
@@ -2758,6 +3028,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from radiosonde_auto_rx_tpu_torch import kernels
+    from radiosonde_auto_rx_tpu_torch.bench import card_line
     dev = torch.device("cuda", 0)
     if torch.get_float32_matmul_precision() != "highest" or \
             torch.backends.cuda.matmul.allow_tf32:
@@ -2924,6 +3195,9 @@ def main() -> int:
     # 13. the reference's accelerator forms, forced by their switches
     forms = forms_phase(dev, card, stream, d_results, tools["profile"])
 
+    # 14. the repository's two drivers: the bench and the entry points
+    drivers = drivers_phase(dev, card)
+
     entries = []
     for name, src, rep, res, n in (
             ("fsk_scan", "radiosonde_auto_rx_tpu_torch/csrc/fsk_scan.cu",
@@ -2972,6 +3246,15 @@ def main() -> int:
         e["phase13_launches"] = forms["launches"][key]
     by_name["fsk_scan_unbuffered"]["phase12_launches"] = dict(
         pp=mesh["pp_launches"]["fsk_scan_unbuffered"])
+    for e, key in ((scan_e, "fsk_scan"), (k2_e, "fft_abs2")):
+        e["phase14_launches"] = dict(
+            {p: drivers["bench"]["extra"][f"{p}_launches"][key]
+             for p in BENCH_PROGRAMS}, dryrun=drivers["dryrun_launches"][key])
+    scan_e["max_abs_err"] = max(scan_e["max_abs_err"], drivers["scan_err"])
+    scan_e["phase14_shapes"] = drivers["scan_shapes"]
+    by_name["fsk_scan_unbuffered"]["phase14_launches"] = dict(
+        entry=drivers["entry_launches"]["fsk_scan_unbuffered"],
+        dryrun=drivers["dryrun_launches"]["fsk_scan_unbuffered"])
     by_name["fsk_scan_unbuffered"]["path"] = \
         "demod.cli.run (fsk_demod_stream(buffered=False))"
     by_name["fsk_scan_unbuffered"]["demod_cli"] = cli["demod_cli"]

@@ -520,3 +520,35 @@ def test_sharded_modules_cuda_equal_cpu(dev):
         if d == dev:
             assert kernels.launches["fsk_scan_unbuffered"] == 5
     assert torch.equal(bits[0], bits[1])
+
+
+def test_bench_line_on_the_card(dev, capsys):
+    """``bench.main()`` on the card at a cut geometry (2 captures, 5
+    calls a trial): every key, every number finite and positive, wall at
+    or above device ms, the launches a step as ``chip_smoke.bench_plan``
+    says."""
+    import json
+    from radiosonde_auto_rx_tpu_torch import bench
+    geo = bench.Geometry(64, 48000, 2, 2_400_000, 2_400_000, 6, 5)
+    assert bench.main([], geometry=geo) == 0
+    res = json.loads(capsys.readouterr().out)
+    cs.check_bench_line(res, len(set(bench.ACTIVES)))
+    assert res["extra"]["device"] == bench.card_line()
+
+
+def test_entry_on_the_card_equals_cpu(dev):
+    """``graft_entry.entry()``'s step on the card: one unbuffered scan
+    launch, the CPU step's bits, soft within ``chip_smoke.ENTRY_TOL`` of
+    its peak."""
+    from radiosonde_auto_rx_tpu_torch import graft_entry
+    fn, args = graft_entry.entry(dev)
+    kernels.reset_launches()
+    soft, bits = fn(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["fsk_scan_unbuffered"] == 1
+    assert kernels.launches["fsk_scan"] == 1
+    cfn, cargs = graft_entry.entry(torch.device("cpu"))
+    csoft, cbits = cfn(*cargs)
+    assert torch.equal(bits.cpu(), cbits)
+    assert float((soft.cpu() - csoft).abs().max()) <= \
+        cs.ENTRY_TOL * float(csoft.abs().max())

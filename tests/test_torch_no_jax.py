@@ -28,7 +28,9 @@ replaying a cs16 capture in scan mode (it finds and logs the RS41, its
 frames decoded by spawned pool workers) and the demod CLI, with
 ``PYTHONPATH`` shadowing ``jax`` and ``radiosonde_auto_rx_tpu`` by
 packages that raise on import, so that the pool's workers, which inherit
-the environment, are blocked too.  A static
+the environment, are blocked too.  Another
+child runs the two drivers: the bench's JSON line on the CPU at a small
+geometry and the entry step (``graft_entry.entry``).  A static
 check keeps ``import jax`` and imports of the JAX package out of the
 port's files and the smoke script.
 """
@@ -205,6 +207,25 @@ print(json.dumps(out))
 """
 
 
+BENCH_CHILD = BLOCKER + r"""
+import contextlib, io
+from radiosonde_auto_rx_tpu_torch import bench, graft_entry
+
+geo = bench.Geometry(8, 12_000, 1, 455_000, 455_000, 3, 1, 1,
+                     (16, 12_000, 1))
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc = bench.main(["--device", "cpu"], geometry=geo)
+fn, args = graft_entry.entry(torch.device("cpu"))
+soft, bits = fn(*args)
+out = dict(rc=rc, line=json.loads(buf.getvalue()),
+           entry=[list(soft.shape), list(bits.shape)])
+out["blocked"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in BLOCKED)
+print(json.dumps(out))
+"""
+
+
 def _child(code):
     res = subprocess.run([sys.executable, "-c", code, str(ROOT)],
                          capture_output=True, text=True, timeout=300,
@@ -293,6 +314,17 @@ def test_tpu_forms_run_without_jax():
     assert out["planes"] == ["torch.bfloat16"]
     assert out["detections"] == 3
     assert len(out["seen"]) == 3 and all(v > 0 for v in out["seen"].values())
+
+
+def test_bench_and_entry_run_without_jax():
+    """``bench.main(["--device", "cpu"])`` at a small geometry prints its
+    JSON line, and ``graft_entry.entry()`` runs its step."""
+    from test_torch_bench import SMALL, check_line
+    out = _child(BENCH_CHILD)
+    assert out["blocked"] == []
+    assert out["rc"] == 0
+    check_line(out["line"], SMALL)
+    assert out["entry"] == [[94, 8, 50], [94, 8, 50]]
 
 
 def _shadowed(tmp_path):
