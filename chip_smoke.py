@@ -237,13 +237,40 @@ Phases, in order; any failure raises (non-zero exit, traceback):
    input, the r3 model's 500 channels, and each type group of the
    production and steady programs on modulated signals of their shapes;
    ``scan_diff``'s checks from the initial and from a carried state.
+15. The sharded station step across processes over NCCL, one GPU a
+   process (``--mesh-worker`` children joining one group on a
+   ``file://`` store through ``parallel.multihost``; counters zeroed
+   just before each mode's drive in each process, read just after).
+   With fewer than two GPUs it prints that it needs two and how many it
+   found, and checks that a worker started as one of two processes
+   exits 1 naming the GPU count.  With two or more: (a)
+   ``tests/station_fixture.py``'s captures (rebuilt from the port's
+   copies) through ``StationStep.analyze`` -> ``confirm`` ->
+   ``route_demod`` on a (4, 2) mesh and ``make_station_step`` on an
+   (8, 1) mesh over 2 processes, 4 virtual shards each on its own GPU;
+   (b) the same over 4 processes where there are 4 GPUs; every shard
+   held to one process's run of the same meshes on ``cuda:0`` (integers
+   and masks equal, floats within ``MESH_FLOAT_TOL`` of their peak), the
+   routed RS41 slot assembled from the ranks decoding ``T1357911``, the
+   scan and K2 launched in every rank, and each GPU holding exactly one
+   worker's context; (c) the bench's production geometry (8 captures of
+   1 s, 50 channels; ``analyze(screen=False)``, ``confirm`` on 20
+   slots, ``route_demod`` of ``bench.ACTIVES``) on an (N, 1) mesh over N
+   processes (4 where there are 4 GPUs, else 2), held as (a) to one
+   process's (N, 1) virtual mesh, each rank's step wall and device busy
+   (NCCL kernels apart) beside that process's; (d) ``make_station_step``
+   at the headline's 512 x 192,000 over the N processes in Msamples/s,
+   in turns with one process over N GPUs and with one GPU; (e) where
+   there are 3 GPUs or more, the stage pipeline (phase 12 (c)) over
+   three processes against one process's.
 
 The second-to-last line is a JSON object of per-kernel results (times
 at the main path's shapes, bound, library-call time, the largest error
 of all the checks; launches: the scan's and K2's on the detection path
 (and by phase-8, phase-9 and phase-10 drive, phase 6's split dispatch,
-phase 11's tools, phase 12's meshes, phase 13's TPU forms and phase
-14's bench programs a step and dryrun), the unbuffered scan's in
+phase 11's tools, phase 12's meshes, phase 13's TPU forms, phase
+14's bench programs a step and dryrun, and phase 15's processes by
+rank and mode, ``{}`` on a host with one GPU), the unbuffered scan's in
 phase 10's demod CLI run (and phase 12's pipeline, phase 14's entry and
 dryrun), K1's and K3's in
 their own phases, through
@@ -1649,9 +1676,9 @@ class HostTime:
 
 
 def compute_pids():
-    """PIDs of the processes holding a CUDA context on the card, as
-    ``nvidia-smi`` lists them (in another PID namespace: only their
-    count means anything here)."""
+    """PIDs of the processes holding a CUDA context on the host's GPUs,
+    one a context, as ``nvidia-smi`` lists them (in another PID
+    namespace: only their count means anything here)."""
     out = subprocess.run(
         ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
@@ -2228,14 +2255,12 @@ def mesh_phase(dev, card, stream):
     out["tshard_launches"] = l_tsh
 
     # (c) the module paths
-    from radiosonde_auto_rx_tpu_torch.demod.fsk import (
-        FSKConfig, fsk_demod_stream)
+    from radiosonde_auto_rx_tpu_torch.demod.fsk import fsk_demod_stream
     from radiosonde_auto_rx_tpu_torch.ops.fir import (
         _conv_valid, design_lowpass)
     from radiosonde_auto_rx_tpu_torch.parallel.pipeline import \
         make_station_step
-    from radiosonde_auto_rx_tpu_torch.parallel.pp import (
-        make_pp_demod_pipeline, make_stage_mesh)
+    from radiosonde_auto_rx_tpu_torch.parallel.pp import make_stage_mesh
     cfg = cfg_of("RS41")
     taps = design_lowpass(0.2, 25)
     T = 2 * 48000
@@ -2270,27 +2295,11 @@ def mesh_phase(dev, card, stream):
           f"mesh, {N_CHAN} RS41 channels of {T} samples: bits equal the "
           f"unsharded card demod on every row and t-shard; launches "
           f"{l_step}")
-    pcfg = FSKConfig(**PP_CFG)
-    rng = np.random.default_rng(5)
-    tx = np.concatenate([rng.integers(0, 2, 400),
-                         _rs41_bits("S0930112", 48.1, 11.6, 2, rng),
-                         rng.integers(0, 2, 700)]).astype(np.uint8)
-    from radiosonde_auto_rx_tpu_torch.demod.modulate import (
-        add_awgn, gfsk_mod)
-    iq = add_awgn(gfsk_mod(tx, 48000, 4800, 2, 0.0, 4800, bt=0.5), 15.0,
-                  48000, 4800, rng=rng)
-    planes = np.repeat(np.stack([iq.real, iq.imag]).astype(
-        np.float32)[None], 2, axis=0)
-    M = planes.shape[-1] // PP_T_MB
-    xs = np.ascontiguousarray(planes[:, :, :M * PP_T_MB].reshape(
-        2, 2, M, PP_T_MB).transpose(2, 0, 1, 3))
+    M = pp_input()[1]
     pp_out, l_pp = [], None
     for d in (dev, cpu):
         kernels.reset_launches()
-        run = make_pp_demod_pipeline(
-            pcfg, make_stage_mesh(3, devices=[d] * 3), taps, channels=2,
-            t_mb=PP_T_MB)
-        pp_out.append(run(torch.from_numpy(xs).to(d)))
+        pp_out.append(pp_run(make_stage_mesh(3, devices=[d] * 3)))
         if l_pp is None:
             torch.cuda.synchronize()
             l_pp = dict(kernels.launches)
@@ -2298,9 +2307,7 @@ def mesh_phase(dev, card, stream):
     if not torch.equal(bits_g.cpu(), bits_c):
         raise AssertionError("phase 12 (c) pp demod: card and CPU bits "
                              "differ")
-    from radiosonde_auto_rx_tpu_torch.models.rs41 import RS41Decoder
-    telems = RS41Decoder().decode_bits(bits_g[:, 0].reshape(-1).cpu().numpy(),
-                                       -soft_g[:, 0].reshape(-1).cpu().numpy())
+    telems = pp_telemetry(soft_g, bits_g)
     if not telems or telems[0]["id"] != "S0930112":
         raise AssertionError(f"phase 12 (c) pp demod decoded {telems}")
     if l_pp["fsk_scan_unbuffered"] != M or l_pp["freq_est_sf"]:
@@ -3021,6 +3028,716 @@ def drivers_phase(dev, card):
 
 
 # ---------------------------------------------------------------------- #
+# phase 15: the sharded station step across processes (NCCL, one GPU a
+# process)
+
+MESH_WORKER_TIMEOUT = 300        # a worker process's limit (s)
+MESH_FLOAT_TOL = 1e-6            # a float output, of its peak
+MESH_STEP_REPS = 5               # (c): timed steps a rank
+# station_fixture's geometry (tests/station_fixture.py), built from the
+# port's copies: four 3 s captures at 768 kHz, 16 channels, one sonde a
+# capture at (capture, channel); the (4, 2) and (8, 1) meshes
+FX_CHAN, FX_FS, FX_T = 16, 768_000, 2_304_000
+FX_TS = 1_755_600_000.0          # the RS41 frames' GPS time
+FX_SONDES = {"RS41": (0, 5), "M20": (3, 9), "DFM": (1, 4), "M10": (2, 11)}
+FX_CANDS = [b * FX_CHAN + c for b, c in FX_SONDES.values()] + \
+    [2 * FX_CHAN + 1]
+FX_SHARDS = 8
+FX_CFG = dict(fs=48000, rs=4800, m=2, p=5, nsym=50, est_min=-5000,
+              est_max=5000, tone_spacing=5000, freq_est_type=1)
+PROD_B = 8                       # (c): 1 s captures a step
+HEADLINE = (512, 4 * 48000)      # (d): channels x samples
+HEADLINE_CALLS = 20              # (d): timed calls a trial
+HEADLINE_TRIALS = 2
+
+
+def _taper(sig, n=4096):
+    w = 0.5 - 0.5 * np.cos(np.pi * np.arange(n) / n)
+    sig[:n] *= w
+    sig[-n:] *= w[::-1]
+    return sig
+
+
+def fixture_captures(ts: float = FX_TS):
+    """``tests/station_fixture.make_wide_captures(ts)`` from the port's
+    copies of the modulator and the frame encoders (the GPU host has no
+    JAX): [4, 2, FX_T] float32 planes carrying an RS41 (``T1357911``), an
+    M20, a DFM and an M10 on noise, the same draws in the same order."""
+    from radiosonde_auto_rx_tpu_torch.demod.modulate import gfsk_mod
+    from radiosonde_auto_rx_tpu_torch.models.dfm import encode_flight_bits
+    from radiosonde_auto_rx_tpu_torch.models.m10 import (
+        encode_frame_m10, encode_frame_m20, frame_to_raw_bits)
+    from radiosonde_auto_rx_tpu_torch.models.rs41 import (
+        encode_frame, frame_to_bits, make_calibytes)
+    from radiosonde_auto_rx_tpu_torch.ops.channelizer import channel_freqs
+    rng = np.random.default_rng(7)
+    freqs = channel_freqs(FX_CHAN, FX_FS)
+    B, T = len(FX_SONDES), FX_T
+    wide = (rng.standard_normal((B, T)) + 1j * rng.standard_normal((B, T))
+            ).astype(np.complex64) * 0.002
+    now = datetime.datetime.fromtimestamp(ts, datetime.timezone.utc)
+    week = (now - datetime.datetime(1980, 1, 6, tzinfo=datetime.timezone.utc)
+            ).days // 7
+    tow_ms = ((((now.weekday() + 1) % 7 * 24 + now.hour) * 3600 +
+               now.minute * 60 + now.second) * 1000)
+    cal = make_calibytes()
+    rs41 = np.concatenate(
+        [rng.integers(0, 2, 400)] +
+        [frame_to_bits(encode_frame(
+            frame_nb=900 + i, sonde_id="T1357911", week=week,
+            tow_ms=tow_ms + i * 1000, lat=-34.5, lon=138.6, alt=12000.0,
+            calibytes=cal, calfr=i)) for i in range(3)] +
+        [rng.integers(0, 2, 400)])
+    idle = np.tile(np.array([1, 0], np.uint8), 200)
+    m20 = np.concatenate([idle] + [frame_to_raw_bits(encode_frame_m20())
+                                   for _ in range(4)] + [idle])
+    dfm = np.concatenate([
+        rng.integers(0, 2, 500).astype(np.uint8),
+        encode_flight_bits(sn=21054321, lat=47.9, lon=16.8, n_cycles=2,
+                           time_step=1.0).astype(np.uint8)])
+    idle = np.tile(np.concatenate([np.ones(8, np.uint8),
+                                   np.zeros(8, np.uint8)]), 40)
+    m10 = np.concatenate([idle] + [frame_to_raw_bits(encode_frame_m10(
+        lat=48.2, lon=16.4, alt=11000.0)) for _ in range(3)] + [idle])
+    for name, bits, rs, shift, bt in (("RS41", rs41, 4800, 4800, 0.5),
+                                      ("M20", m20, 9600, 9600, 1.0),
+                                      ("DFM", dfm, 2500, 5000, 0.5),
+                                      ("M10", m10, 9616, 10000, 1.0)):
+        b, c = FX_SONDES[name]
+        sig = _taper(gfsk_mod(bits, FX_FS, rs, 2, freqs[c], shift,
+                              bt=bt)[:T])
+        wide[b, :len(sig)] += sig
+    return np.stack([wide.real, wide.imag], axis=1).astype(np.float32)
+
+
+def fixture_pipeline_input():
+    """``make_station_step``'s input in (a): 16 channels of 2-FSK, 24,000
+    samples, from seed 0 (the same in every process)."""
+    C, T = 16, 24000
+    rng = np.random.default_rng(0)
+    bits = rng.integers(0, 2, (C, T // 10 + 2))
+    sym = np.repeat(bits, 10, axis=1)[:, :T]
+    ph = 2 * np.pi * np.cumsum(np.where(sym == 0, -2500.0, 2500.0),
+                               axis=1) / 48000
+    iq = np.exp(1j * ph) + (rng.standard_normal(ph.shape) +
+                            1j * rng.standard_normal(ph.shape)) * 0.05
+    return np.stack([iq.real, iq.imag], axis=1).astype(np.float32)
+
+
+def _host(out: dict) -> dict:
+    """{name: {coord: tensor}} -> {name: {coord: host array}}."""
+    return {k: {c: v.cpu().numpy() for c, v in d.items()}
+            for k, d in out.items()}
+
+
+def _step_outputs(psd, conf, res) -> dict:
+    """The sharded step's outputs by name: the PSD, the confirmation
+    streams and peaks, every ``route_demod`` field."""
+    return dict(psd=psd, streams=conf["streams"],
+                **{f"peak{i}_{j}": p[j] for i, p in enumerate(conf["peaks"])
+                   for j in range(4)}, **res)
+
+
+def fixture_dataflow(wide, station_mesh, pipeline_mesh) -> dict:
+    """The JAX worker's two modes (``tests/multiproc_worker.py``) on the
+    given meshes: ``StationStep.analyze`` -> ``confirm`` (the four sondes'
+    channels and a noise row) -> ``route_demod`` (each sonde to its
+    expert) on ``station_mesh`` over the fixture's captures ``wide``, and
+    ``make_station_step`` (IF FIR + demod) on ``pipeline_mesh`` over
+    ``fixture_pipeline_input``.  Returns {name: {coord: host array}} of
+    this process's shards."""
+    from radiosonde_auto_rx_tpu_torch.demod.fsk import FSKConfig
+    from radiosonde_auto_rx_tpu_torch.ops.fir import design_lowpass
+    from radiosonde_auto_rx_tpu_torch.parallel.mesh import shard
+    from radiosonde_auto_rx_tpu_torch.parallel.pipeline import \
+        make_station_step
+    from radiosonde_auto_rx_tpu_torch.parallel.station_step import (
+        EXPERT_TYPES, STREAM, StationStep)
+    step = StationStep(n_chan=FX_CHAN, capacity=2, conf_capacity=2,
+                       mesh=station_mesh)
+    chf, psd, ratios = step.analyze(shard(wide, station_mesh, STREAM))
+    slots = np.full(step.n_conf_slots, -1, np.int64)
+    slots[:len(FX_CANDS)] = FX_CANDS
+    conf = step.confirm(chf, slots)
+    exp = np.full(wide.shape[0] * FX_CHAN, -1, np.int64)
+    for name, (b, c) in FX_SONDES.items():
+        exp[b * FX_CHAN + c] = EXPERT_TYPES.index(name)
+    res = step.route_demod(chf, exp)
+    out = dict(chf=chf, ratios=ratios, **_step_outputs(psd, conf, res))
+    _, bits = make_station_step(FSKConfig(**FX_CFG), pipeline_mesh,
+                                design_lowpass(0.2, 25))(
+        shard(fixture_pipeline_input(), pipeline_mesh, STREAM))
+    out["pipeline_bits"] = bits
+    return _host(out)
+
+
+def fixture_rs41(shards: dict) -> list:
+    """The routed RS41 slot of (a)'s ``route_demod`` fields (every shard,
+    host arrays, assembled on a CPU mesh of the fixture's shape) decoded:
+    the telemetry list."""
+    import torch
+    from radiosonde_auto_rx_tpu_torch.models import get_model
+    from radiosonde_auto_rx_tpu_torch.parallel.mesh import make_mesh
+    from radiosonde_auto_rx_tpu_torch.parallel.station_step import (
+        EXPERT_TYPES, StationStep)
+    step = StationStep(n_chan=FX_CHAN, capacity=2, conf_capacity=2,
+                       mesh=make_mesh(n_t=2, devices=[torch.device("cpu")] *
+                                      FX_SHARDS))
+    res = step.gather_routed({k: {c: torch.from_numpy(v)
+                                  for c, v in shards[k].items()}
+                              for k in ("soft", "bits", "ebno", "fres",
+                                        "fcnt", "ids", "mask", "dropped")})
+    e = EXPERT_TYPES.index("RS41")
+    (s,) = np.flatnonzero(res["ids"][e].numpy() == FX_CANDS[0])
+    bits, _ = step.slot_bits(res, e, int(s), FX_T // FX_CHAN)
+    return get_model("RS41")().decode_bits(bits, None)
+
+
+def production_plan(B: int):
+    """(c)'s host plan at the bench's production geometry, ``B`` 1 s
+    captures: ``bench.ACTIVES``' 10 actives of 5 types on distinct
+    channels (their expert ids) and ``bench.N_CAND`` confirmation slots,
+    from ``default_rng(3)`` as the bench's programs draw them."""
+    from radiosonde_auto_rx_tpu_torch import bench
+    from radiosonde_auto_rx_tpu_torch.parallel.station_step import \
+        EXPERT_TYPES
+    rng = np.random.default_rng(3)
+    exp = np.full(B * N_CHAN, -1, np.int64)
+    for name, cid in zip(bench.ACTIVES, rng.choice(
+            B * N_CHAN, len(bench.ACTIVES), replace=False)):
+        exp[cid] = EXPERT_TYPES.index(name)
+    return exp, rng.choice(B * N_CHAN, bench.N_CAND, replace=False)
+
+
+def busy_split_ms(fn, reps: int = 2) -> dict:
+    """torch.profiler over ``reps`` calls of ``fn`` after a warm-up: the
+    mean device ms a call of the NCCL kernels and of everything else (a
+    NCCL kernel's span includes its wait for the peer)."""
+    import torch
+    from radiosonde_auto_rx_tpu_torch.tools.profile_station import \
+        device_events
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {"compute": 0.0, "nccl": 0.0}
+    for e in device_events(prof):
+        split["nccl" if "nccl" in e.name.lower() else "compute"] += \
+            e.time_range.elapsed_us() / 1e3 / reps
+    if not split["compute"]:
+        raise AssertionError("phase 15: the profiler saw no device time")
+    return split
+
+
+def production_run(mesh, wide, start) -> dict:
+    """(c): ``analyze(screen=False)`` -> ``confirm`` on the plan's slots
+    (``bench.N_CAND`` over the ch shards) -> ``route_demod`` of the
+    actives on ``mesh`` (ch shards only) over the global captures
+    ``wide`` (host planes), once with the launch counters zeroed just
+    before and read just after, then ``MESH_STEP_REPS`` steps timed, each
+    after ``start()`` (the processes start together), and the device
+    time of two more.  Returns outputs (host shards), launches, walls
+    (ms) and device ms."""
+    import torch
+    from radiosonde_auto_rx_tpu_torch import bench, kernels
+    from radiosonde_auto_rx_tpu_torch.parallel.mesh import CH_AXIS, shard
+    from radiosonde_auto_rx_tpu_torch.parallel.station_step import (
+        STREAM, StationStep)
+    n_sh = mesh.shape[CH_AXIS]
+    step = StationStep(n_chan=N_CHAN, capacity=4,
+                       conf_capacity=bench.N_CAND // n_sh, mesh=mesh)
+    exp, cands = production_plan(wide.shape[0])
+    slots = np.asarray(cands, np.int64)
+    wl = shard(wide, mesh, STREAM)
+
+    def run():
+        chf, psd, _ = step.analyze(wl, screen=False)
+        conf = step.confirm(chf, slots)
+        return _step_outputs(psd, conf, step.route_demod(chf, exp))
+
+    start()
+    kernels.reset_launches()
+    out = run()
+    launches = dict(kernels.launches)
+    walls = []
+    for _ in range(MESH_STEP_REPS):
+        start()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    start()
+    return dict(out=_host(out), launches=launches, walls=walls,
+                busy=busy_split_ms(run))
+
+
+def headline_input(device):
+    """(d)'s input: ``bench.make_input`` at ``HEADLINE`` on ``device``
+    (seed 0, made there: the same planes on every GPU)."""
+    from radiosonde_auto_rx_tpu_torch import bench
+    return bench.make_input(bench._cfg(), *HEADLINE, device)
+
+
+def headline_walls(mesh, x, start) -> list:
+    """(d): ``make_station_step`` (the buffered demod, no IF filter) of
+    the headline's channels over ``mesh``'s ch shards (this process's of
+    ``x``), as ``bench --scaling`` times its sharded demod: one warm call,
+    then ``HEADLINE_CALLS`` calls a trial, each ending in a host fetch of
+    every local shard's bit sum; each trial after ``start()``.  Returns
+    (each trial's seconds, the port kernels the warm call launched)."""
+    import torch
+    from radiosonde_auto_rx_tpu_torch import bench, kernels
+    from radiosonde_auto_rx_tpu_torch.parallel.mesh import shard
+    from radiosonde_auto_rx_tpu_torch.parallel.pipeline import \
+        make_station_step
+    from radiosonde_auto_rx_tpu_torch.parallel.station_step import STREAM
+    step = make_station_step(bench._cfg(), mesh)
+    xs = shard(x, mesh, STREAM)
+
+    def run():
+        _, bits = step(xs)
+        return sum(int(b.to(torch.int32).sum()) for b in bits.values())
+
+    kernels.reset_launches()
+    run()
+    launches = dict(kernels.launches)
+    walls = []
+    for _ in range(HEADLINE_TRIALS):
+        start()
+        t0 = time.perf_counter()
+        for _ in range(HEADLINE_CALLS):
+            run()
+        walls.append(time.perf_counter() - t0)
+    return walls, launches
+
+
+def headline_msps(seconds) -> float:
+    C, T = HEADLINE
+    return C * T * HEADLINE_CALLS / seconds / 1e6
+
+
+def pp_input():
+    """The stage pipeline's input (phase 12 (c), (e)): 2 channels of
+    RS41 frames (``S0930112``) at 15 dB as [M, 2, 2, PP_T_MB]
+    microbatches, and M."""
+    from radiosonde_auto_rx_tpu_torch.demod.modulate import (add_awgn,
+                                                             gfsk_mod)
+    rng = np.random.default_rng(5)
+    tx = np.concatenate([rng.integers(0, 2, 400),
+                         _rs41_bits("S0930112", 48.1, 11.6, 2, rng),
+                         rng.integers(0, 2, 700)]).astype(np.uint8)
+    iq = add_awgn(gfsk_mod(tx, 48000, 4800, 2, 0.0, 4800, bt=0.5), 15.0,
+                  48000, 4800, rng=rng)
+    planes = np.repeat(np.stack([iq.real, iq.imag]).astype(
+        np.float32)[None], 2, axis=0)
+    M = planes.shape[-1] // PP_T_MB
+    return np.ascontiguousarray(planes[:, :, :M * PP_T_MB].reshape(
+        2, 2, M, PP_T_MB).transpose(2, 0, 1, 3)), M
+
+
+def pp_run(mesh):
+    """``make_pp_demod_pipeline`` on the 3-stage ``mesh`` over
+    ``pp_input``: (soft, bits) on the last stage's process, else None."""
+    import torch
+    from radiosonde_auto_rx_tpu_torch.demod.fsk import FSKConfig
+    from radiosonde_auto_rx_tpu_torch.ops.fir import design_lowpass
+    from radiosonde_auto_rx_tpu_torch.parallel.pp import \
+        make_pp_demod_pipeline
+    xs, _ = pp_input()
+    run = make_pp_demod_pipeline(FSKConfig(**PP_CFG), mesh,
+                                 design_lowpass(0.2, 25), channels=2,
+                                 t_mb=PP_T_MB)
+    return run(torch.from_numpy(xs))
+
+
+def pp_telemetry(soft, bits) -> list:
+    from radiosonde_auto_rx_tpu_torch.models.rs41 import RS41Decoder
+    return RS41Decoder().decode_bits(bits[:, 0].reshape(-1).cpu().numpy(),
+                                     -soft[:, 0].reshape(-1).cpu().numpy())
+
+
+def gpus_short(n: int) -> str | None:
+    """Why this host cannot hold ``n`` processes of one GPU each, or
+    None."""
+    import torch
+    found = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if found >= n:
+        return None
+    return (f"the sharded step over NCCL needs {n} GPUs (one a process; "
+            f"NCCL refuses two ranks on one GPU), found {found}")
+
+
+def mesh_worker(out_dir, init: str, nproc: int, rank: int, modes) -> int:
+    """``python chip_smoke.py --mesh-worker OUT INIT NPROC RANK MODES``:
+    rank ``rank`` of phase 15's ``nproc`` processes.  It joins the group
+    at ``init`` (``multihost.initialize``: NCCL on its own GPU) and runs
+    each of ``modes`` (comma-separated) on the global meshes, the launch
+    counters zeroed just before each and read just after:
+
+    - ``fixture``: ``fixture_dataflow`` on the (4, 2) and (8, 1) meshes,
+      ``8 / nproc`` virtual shards a process on its one device, over
+      ``OUT/fixture.npy``;
+    - ``production``: ``production_run`` on an (nproc, 1) mesh, one
+      shard a process, over ``PROD_B`` Gaussian-noise captures;
+    - ``headline``: ``headline_walls`` on an (nproc, 1) mesh;
+    - ``pp``: ``pp_run`` on a 3-stage mesh of ranks 0-2 (a rank above 2
+      holds no stage).
+
+    Then rank 0 counts the GPUs' contexts while every rank still holds
+    its own.  Writes ``OUT/rank<r>_of_<nproc>.npz`` (shards) and
+    ``.json``.  With fewer GPUs than processes it stops before joining:
+    exit 1, the reason on stderr."""
+    import torch
+    import torch.distributed as dist
+    from radiosonde_auto_rx_tpu_torch import bench, kernels
+    from radiosonde_auto_rx_tpu_torch.parallel import multihost
+    from radiosonde_auto_rx_tpu_torch.parallel.collectives import \
+        comm_device
+    from radiosonde_auto_rx_tpu_torch.parallel.pp import make_stage_mesh
+    out_dir = Path(out_dir)
+    short = gpus_short(nproc)
+    if short:
+        print(f"chip_smoke --mesh-worker: {short}", file=sys.stderr)
+        return 1
+    multihost.initialize(init, num_processes=nproc, process_id=rank,
+                         device="cuda")
+
+    def start():
+        torch.cuda.synchronize()
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+
+    try:
+        dev = comm_device()
+        res = dict(rank=rank, device=str(dev), launches={})
+        shards = {}
+        for mode in modes:
+            kernels.reset_launches()
+            got = {}
+            if mode == "fixture":
+                local = [dev] * (FX_SHARDS // nproc)
+                got = fixture_dataflow(
+                    np.load(out_dir / "fixture.npy"),
+                    multihost.global_mesh(n_t=2, local_devices=local),
+                    multihost.global_mesh(n_t=1, local_devices=local))
+                launches = dict(kernels.launches)
+            elif mode == "production":
+                prod = production_run(
+                    multihost.global_mesh(n_t=1, local_devices=[dev]),
+                    bench._wide(PROD_B, FS_WIDE, torch.device("cpu")).numpy(),
+                    start)
+                got, launches = prod.pop("out"), prod.pop("launches")
+                res["production"] = prod
+            elif mode == "headline":
+                res["headline_s"], launches = headline_walls(
+                    multihost.global_mesh(n_t=1, local_devices=[dev]),
+                    headline_input(dev), start)
+            elif mode == "pp":
+                if rank < 3:
+                    ys = pp_run(make_stage_mesh(3, devices=[dev] * 3,
+                                                ranks=[0, 1, 2]))
+                    if ys is not None:
+                        got = {"pp_soft": {(0,): ys[0].cpu().numpy()},
+                               "pp_bits": {(0,): ys[1].cpu().numpy()}}
+                launches = dict(kernels.launches)
+            else:
+                raise ValueError(f"--mesh-worker: no mode {mode!r}")
+            res["launches"][mode] = launches
+            shards.update({f"{mode}/{k}|{','.join(map(str, c))}": v
+                           for k, d in got.items() for c, v in d.items()})
+        start()
+        if rank == 0:
+            res["contexts"] = len(compute_pids())
+        start()
+        tag = f"rank{rank}_of_{nproc}"
+        np.savez(out_dir / f"{tag}.npz", **shards)
+        (out_dir / f"{tag}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def launch_workers(out_dir, nproc: int, modes):
+    """Start ``nproc`` ``--mesh-worker`` processes on a ``file://`` store in
+    ``out_dir`` and wait for them (each under ``MESH_WORKER_TIMEOUT``; a
+    failure stops all).  Returns (per-rank JSON, per-rank {mode: {name:
+    {coord: array}}})."""
+    out_dir = Path(out_dir)
+    store = out_dir / f"store{nproc}"
+    store.unlink(missing_ok=True)
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
+           str(out_dir), f"file://{store}", str(nproc)]
+    logs = [out_dir / f"rank{r}_of_{nproc}.log" for r in range(nproc)]
+    procs = []
+    try:
+        for r, log in enumerate(logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    cmd + [str(r), ",".join(modes)], stdout=f,
+                    stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + MESH_WORKER_TIMEOUT
+        while any(p.poll() is None for p in procs) and \
+                not any(p.returncode for p in procs) and \
+                time.monotonic() < deadline:
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 15: worker {r} of {nproc} exited "
+                                 f"{p.returncode}\n"
+                                 f"{log.read_text()[-4000:]}")
+    infos, shards = [], []
+    for r in range(nproc):
+        infos.append(json.loads((out_dir / f"rank{r}_of_{nproc}.json"
+                                 ).read_text()))
+        got = {}
+        with np.load(out_dir / f"rank{r}_of_{nproc}.npz") as z:
+            for key in z.files:
+                name, coord = key.split("|")
+                mode, name = name.split("/")
+                got.setdefault(mode, {}).setdefault(name, {})[
+                    tuple(int(v) for v in coord.split(","))] = z[key]
+        shards.append(got)
+    return infos, shards
+
+
+def compare_shards(ranks, ref, what: str, owner) -> float:
+    """Every shard of ``ref`` ({name: {coord: array}}) from exactly one
+    rank of ``ranks`` (each {name: {coord: array}}), the one ``owner(name,
+    coord)`` names: integer and bool arrays equal, float ones within
+    ``MESH_FLOAT_TOL`` of their peak.  Returns the largest float
+    difference over its peak."""
+    worst, seen = 0.0, set()
+    for r, got in enumerate(ranks):
+        for name, d in got.items():
+            for c, v in d.items():
+                want = ref[name][c]
+                key = f"{what} {name} {c} (rank {r})"
+                if owner(name, c) != r or (name, c) in seen:
+                    raise AssertionError(f"{key}: not this rank's shard")
+                seen.add((name, c))
+                if v.shape != want.shape or v.dtype != want.dtype:
+                    raise AssertionError(f"{key}: {v.shape} {v.dtype}, want "
+                                         f"{want.shape} {want.dtype}")
+                if v.dtype.kind != "f":
+                    if not np.array_equal(v, want):
+                        raise AssertionError(f"{key}: differs")
+                    continue
+                peak = float(np.abs(want).max()) if want.size else 0.0
+                diff = float(np.abs(v - want).max()) if v.size else 0.0
+                if diff > MESH_FLOAT_TOL * peak:
+                    raise AssertionError(f"{key}: {diff:.3e} of a peak "
+                                         f"{peak:.3e}")
+                if peak:
+                    worst = max(worst, diff / peak)
+    missing = {(n, c) for n, d in ref.items() for c in d} - seen
+    if missing:
+        raise AssertionError(f"{what}: no rank returned {sorted(missing)}")
+    return worst
+
+
+def mesh_procs_phase(dev, card) -> dict:
+    """Phase 15: the sharded station step across processes over NCCL,
+    one GPU a process (``mesh_worker``), against one process's run of
+    the same mesh on ``dev`` (virtual shards).  With fewer than two
+    GPUs: the worker's refusal."""
+    import torch
+    from radiosonde_auto_rx_tpu_torch import kernels
+    from radiosonde_auto_rx_tpu_torch.parallel.mesh import make_mesh
+    from radiosonde_auto_rx_tpu_torch.parallel.pp import make_stage_mesh
+    t_phase = time.perf_counter()
+    out_dir = WORK / "mesh"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    n_gpu = torch.cuda.device_count()
+    if n_gpu < 2:
+        print(f"phase 15: {gpus_short(2)}: (a)-(e) not run on this host")
+        res = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
+             str(out_dir), f"file://{out_dir / 'store'}", "2", "0",
+             "fixture,production,headline"], capture_output=True,
+            text=True, timeout=MESH_WORKER_TIMEOUT)
+        if res.returncode != 1 or f"found {n_gpu}" not in res.stderr or \
+                "needs 2 GPUs" not in res.stderr:
+            raise AssertionError(f"phase 15: --mesh-worker with 2 processes "
+                                 f"on {n_gpu} GPU exit {res.returncode}\n"
+                                 f"{res.stderr[-2000:]}")
+        print(f"phase 15 --mesh-worker, 2 processes on {n_gpu} GPU: exit 1, "
+              f"{res.stderr.strip().splitlines()[-1]}")
+        seconds = time.perf_counter() - t_phase
+        print(f"phase 15 took {seconds:.1f} s")
+        return dict(launches={}, seconds=seconds)
+
+    n = 4 if n_gpu >= 4 else 2
+    out = dict(launches={}, n=n)
+    wide = fixture_captures()
+    np.save(out_dir / "fixture.npy", wide)
+    kernels.reset_launches()
+    ref_fx = fixture_dataflow(wide, make_mesh(n_t=2, devices=[dev] * 8),
+                              make_mesh(n_t=1, devices=[dev] * 8))
+    ref_launches = dict(fixture=dict(kernels.launches))
+    from radiosonde_auto_rx_tpu_torch.bench import _wide
+    prod_wide = _wide(PROD_B, FS_WIDE, torch.device("cpu")).numpy()
+    ref_prod = production_run(make_mesh(n, 1, devices=[dev] * n), prod_wide,
+                              torch.cuda.synchronize)
+    ref_launches["production"] = ref_prod["launches"]
+    M = pp_input()[1]
+    ref_pp = pp_run(make_stage_mesh(3, devices=[dev] * 3))
+    # (d) in turns: one GPU, one process over n GPUs, n processes, then
+    # the two again
+    x = headline_input(dev)
+    singles = {1: make_mesh(1, 1, devices=[dev]),
+               n: make_mesh(n, 1, devices=[torch.device("cuda", i)
+                                           for i in range(n)])}
+
+    def single_turns(order):
+        return {k: headline_msps(min(headline_walls(
+            singles[k], x, torch.cuda.synchronize)[0])) for k in order}
+    turns = [single_turns((1, n))]
+    before = len(compute_pids())
+    launched = {}
+    if n > 2:
+        launched[2] = launch_workers(out_dir, 2, ["fixture"])
+    modes = ["fixture", "production", "headline"] + (["pp"] if n >= 3
+                                                     else [])
+    launched[n] = launch_workers(out_dir, n, modes)
+    turns.append(single_turns((n, 1)))
+    if n_gpu == 3:
+        launched[3] = launch_workers(out_dir, 3, ["pp"])
+    for k, (infos, _) in launched.items():
+        # each worker holds one context (on its own GPU: the device
+        # check below) and no other
+        if infos[0]["contexts"] - before != k:
+            raise AssertionError(f"phase 15: {k} processes held "
+                                 f"{infos[0]['contexts']} CUDA contexts "
+                                 f"with this process's {before}")
+        for info in infos:
+            if info["device"] != f"cuda:{info['rank']}":
+                raise AssertionError(f"phase 15: rank {info['rank']} ran on "
+                                     f"{info['device']}")
+            la = info["launches"]
+            if set(la) != {"pp"} and any(
+                    sum(m[key] for m in la.values()) <= 0
+                    for key in ("fsk_scan", "fft_abs2")):
+                raise AssertionError(f"phase 15 ({k} processes) rank "
+                                     f"{info['rank']}: launches {la}")
+        for mode, want in ref_launches.items():
+            if mode in infos[0]["launches"]:
+                got = {key: sum(i["launches"][mode][key] for i in infos)
+                       for key in want}
+                if got != want:
+                    raise AssertionError(f"phase 15 ({k} processes) {mode}: "
+                                         f"the ranks launched {got}, one "
+                                         f"process {want}")
+        out["launches"][k] = [info["launches"] for info in infos]
+    # (a), (b): every shard against the one-process run
+    fx_err = {}
+    for k, (infos, ranks) in launched.items():
+        if "fixture" not in infos[0]["launches"]:
+            continue
+        local = FX_SHARDS // k
+        fx_err[k] = compare_shards(
+            [r["fixture"] for r in ranks], ref_fx, f"phase 15 ({k} "
+            f"processes) fixture",
+            lambda name, c, local=local: c[0] // (
+                local if name == "pipeline_bits" else local // 2))
+        assembled = {}
+        for r in ranks:
+            for name, d in r["fixture"].items():
+                assembled.setdefault(name, {}).update(d)
+        telems = fixture_rs41(assembled)
+        if not telems or telems[-1]["id"] != "T1357911":
+            raise AssertionError(f"phase 15 ({k} processes): the routed "
+                                 f"RS41 slot decoded {telems}")
+        print(f"phase 15 ({'a' if k == 2 else 'b'}) station_fixture's "
+              f"dataflow over {k} processes (NCCL, one GPU each, "
+              f"{FX_SHARDS // k} virtual shards a process): every shard of "
+              f"the (4, 2) analyze/confirm/route_demod and the (8, 1) "
+              f"make_station_step as one process's on {dev}: integers and "
+              f"masks equal, floats within {fx_err[k]:.3e} of their peak "
+              f"(tol {MESH_FLOAT_TOL}); the routed RS41 slot assembled from "
+              f"the {k} ranks decodes {telems[-1]['id']}; launches by rank "
+              f"{[i['launches']['fixture'] for i in infos]}")
+    out["fixture_err"] = fx_err
+    # (c) the production geometry, one shard a process
+    infos, ranks = launched[n]
+    prod_err = compare_shards([r["production"] for r in ranks],
+                              ref_prod["out"], f"phase 15 ({n} processes) "
+                              f"production", lambda name, c: c[0])
+    out["production"] = dict(
+        err=prod_err, ranks=[i["production"] for i in infos],
+        one_process=dict(walls=ref_prod["walls"], busy=ref_prod["busy"],
+                         launches=ref_prod["launches"]))
+    print(f"phase 15 (c) production geometry ({PROD_B} x 1 s captures of "
+          f"{FS_WIDE} Hz, {N_CHAN} channels; analyze(screen=False), confirm "
+          f"on 20 slots, route_demod of bench.ACTIVES) on an ({n}, 1) mesh "
+          f"over {n} processes: every shard as one process's ({n}, 1) "
+          f"virtual mesh on {dev}, floats within {prod_err:.3e} of their "
+          f"peak ({card})")
+    for info in infos:
+        p = info["production"]
+        print(f"phase 15 (c) rank {info['rank']} ({info['device']}): step "
+              f"wall median {statistics.median(p['walls']):.3f} ms "
+              f"{[round(v, 3) for v in p['walls']]}, device busy "
+              f"{p['busy']['compute']:.3f} ms + NCCL kernels "
+              f"{p['busy']['nccl']:.3f} ms; launches "
+              f"{info['launches']['production']}")
+    print(f"phase 15 (c) one process, ({n}, 1) virtual mesh on {dev}: step "
+          f"wall median {statistics.median(ref_prod['walls']):.3f} ms "
+          f"{[round(v, 3) for v in ref_prod['walls']]}, device busy "
+          f"{ref_prod['busy']['compute']:.3f} ms; launches "
+          f"{ref_prod['launches']}")
+    # (d) the headline over n processes: the slowest rank of each trial
+    procs = max(headline_msps(max(t)) for t in zip(
+        *[info["headline_s"] for info in infos]))
+    for info in infos:
+        if info["launches"]["headline"]["fsk_scan"] != 1:
+            raise AssertionError(f"phase 15 (d) rank {info['rank']}: "
+                                 f"launches {info['launches']['headline']}")
+    out["headline_msps"] = dict(
+        processes=procs, turns=turns,
+        ratio_processes=procs / statistics.mean(t[1] for t in turns),
+        ratio_one_process=statistics.mean(t[n] for t in turns) /
+        statistics.mean(t[1] for t in turns))
+    print(f"phase 15 (d) make_station_step at {HEADLINE[0]} x {HEADLINE[1]}"
+          f" (RS41 buffered demod, one scan launch a shard), Msamples/s, "
+          f"{HEADLINE_CALLS} calls a trial each ending in a host fetch: "
+          f"{n} processes one GPU each {procs:.2f}; in turns one GPU "
+          f"{[round(t[1], 2) for t in turns]}, one process over {n} GPUs "
+          f"{[round(t[n], 2) for t in turns]} ({card})")
+    # (e) the stage pipeline over three processes
+    if n_gpu >= 3:
+        infos, ranks = launched[n if n >= 3 else 3]
+        soft, bits = (ranks[2]["pp"][k][(0,)] for k in ("pp_soft",
+                                                        "pp_bits"))
+        if not np.array_equal(bits, ref_pp[1].cpu().numpy()) or \
+                np.abs(soft - ref_pp[0].cpu().numpy()).max() > \
+                MESH_FLOAT_TOL * float(ref_pp[0].abs().max()):
+            raise AssertionError("phase 15 (e): the 3-process pipeline's "
+                                 "output differs from one process's")
+        telems = pp_telemetry(torch.from_numpy(soft), torch.from_numpy(bits))
+        l_pp = [i["launches"]["pp"] for i in infos]
+        if not telems or telems[0]["id"] != "S0930112" or \
+                l_pp[2]["fsk_scan_unbuffered"] != M or \
+                any(la["fsk_scan"] for la in l_pp[:2]):
+            raise AssertionError(f"phase 15 (e): {telems}, launches {l_pp}")
+        print(f"phase 15 (e) make_pp_demod_pipeline over 3 processes (a "
+              f"stage a GPU), {M} microbatches: the one-process pipeline's "
+              f"output, {len(telems)} RS41 frames decoded; launches by rank "
+              f"{l_pp}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 15 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------- #
 
 def main() -> int:
     import torch
@@ -3198,6 +3915,9 @@ def main() -> int:
     # 14. the repository's two drivers: the bench and the entry points
     drivers = drivers_phase(dev, card)
 
+    # 15. the sharded station step across processes over NCCL
+    procs = mesh_procs_phase(dev, card)
+
     entries = []
     for name, src, rep, res, n in (
             ("fsk_scan", "radiosonde_auto_rx_tpu_torch/csrc/fsk_scan.cu",
@@ -3250,6 +3970,12 @@ def main() -> int:
         e["phase14_launches"] = dict(
             {p: drivers["bench"]["extra"][f"{p}_launches"][key]
              for p in BENCH_PROGRAMS}, dryrun=drivers["dryrun_launches"][key])
+    for e, key in ((scan_e, "fsk_scan"), (k2_e, "fft_abs2")):
+        # per launch of k processes, per rank: each mode's launches
+        e["phase15_launches"] = {
+            f"{k}_processes": [{mode: la[key] for mode, la in rank.items()}
+                               for rank in ranks]
+            for k, ranks in procs["launches"].items()}
     scan_e["max_abs_err"] = max(scan_e["max_abs_err"], drivers["scan_err"])
     scan_e["phase14_shapes"] = drivers["scan_shapes"]
     by_name["fsk_scan_unbuffered"]["phase14_launches"] = dict(
@@ -3270,7 +3996,18 @@ def main() -> int:
     return 0
 
 
+def cli(argv) -> int:
+    """The script's command line: no argument runs every phase;
+    ``--forms OUT`` is phase 13 (b)'s child, ``--mesh-worker OUT INIT
+    NPROC RANK MODES`` a process of phase 15's group."""
+    if argv[:1] == ["--forms"]:
+        return forms_child(argv[1])
+    if argv[:1] == ["--mesh-worker"]:
+        out, init, nproc, rank, modes = argv[1:6]
+        return mesh_worker(out, init, int(nproc), int(rank),
+                           modes.split(","))
+    return main()
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--forms"]:
-        sys.exit(forms_child(sys.argv[2]))
-    sys.exit(main())
+    sys.exit(cli(sys.argv[1:]))

@@ -49,6 +49,17 @@ class Detection:
     freq_offset: float  # Hz (from FM DC term, if computed)
 
 
+def _row_cumsum(x):
+    """``torch.cumsum(x, dim=-1)`` of [C, n], the same bits on every run.
+    On a CUDA tensor of one row torch scans with CUB's device-wide scan,
+    whose float partial sums combine in the order its thread blocks
+    finish; two rows take the row-wise scan, which does not depend on
+    timing, so one row is scanned as two."""
+    if x.shape[0] == 1 and x.is_cuda:
+        return torch.cumsum(x.expand(2, -1), dim=-1)[:1]
+    return torch.cumsum(x, dim=-1)
+
+
 def _windowed_sums(x, lens):
     """Running sums over trailing windows of per-type lengths.
 
@@ -58,7 +69,7 @@ def _windowed_sums(x, lens):
     lmax = int(max(lens))
     nvalid = T - lmax + 1
     x = x.float()                 # running sums accumulate in f32
-    cs = torch.cat([x.new_zeros(C, 1), torch.cumsum(x, dim=-1)], dim=-1)
+    cs = torch.cat([x.new_zeros(C, 1), _row_cumsum(x)], dim=-1)
     # correlation at valid position t covers x[t : t+L]
     return torch.stack([cs[:, int(L):nvalid + int(L)] - cs[:, :nvalid]
                         for L in lens], dim=1)          # [C, K, nvalid]
@@ -234,9 +245,8 @@ def _block_norms(xb, Mb, lens, B, M, pad):
     xb [C, Mb', B]; [C, M + pad, K] each (pad rows: dc 0, norm 1)."""
     xbn = xb[:, :Mb].float()
     zero = xbn.new_zeros(xbn.shape[0], 1)
-    cs1b = torch.cat([zero, torch.cumsum(xbn.sum(-1), dim=-1)], dim=-1)
-    cs2b = torch.cat([zero, torch.cumsum((xbn * xbn).sum(-1), dim=-1)],
-                     dim=-1)
+    cs1b = torch.cat([zero, _row_cumsum(xbn.sum(-1))], dim=-1)
+    cs2b = torch.cat([zero, _row_cumsum((xbn * xbn).sum(-1))], dim=-1)
     C = xbn.shape[0]
     m_idx = torch.arange(M, device=xb.device)
     dcs, xns = [], []
@@ -259,8 +269,8 @@ def _exact_rescore(xf, t_pk, corr_pk, tsum, lens, rms):
     the per-sample window DC and norm from float32 cumsums of the
     float32 stream xf, as in ``_correlate``.  Returns (val, dc_pk)."""
     zero = xf.new_zeros(xf.shape[0], 1)
-    cs1 = torch.cat([zero, torch.cumsum(xf, dim=-1)], dim=-1)
-    cs2 = torch.cat([zero, torch.cumsum(xf * xf, dim=-1)], dim=-1)
+    cs1 = torch.cat([zero, _row_cumsum(xf)], dim=-1)
+    cs2 = torch.cat([zero, _row_cumsum(xf * xf)], dim=-1)
     lensj = torch.tensor(lens, dtype=torch.int64, device=xf.device)[None, :]
     lensf = lensj.float()
     s1p = cs1.gather(1, t_pk + lensj) - cs1.gather(1, t_pk)

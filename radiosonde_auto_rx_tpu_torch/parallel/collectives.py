@@ -14,9 +14,11 @@ shard).  A message between two shards of this process is a device copy
 Messages to and from other processes go through ``torch.distributed``:
 per peer rank one packed message each way, all posted in one
 ``batch_isend_irecv``, packed in the order of the (source, destination)
-coordinates on both ends.  Every process builds the same message list
-from the mesh alone, so every process issues the same collectives in the
-same order; none is issued inside a data-dependent branch.
+coordinates on both ends, on the process's communication device
+(``comm_device``: its NCCL GPU, or the CPU for gloo).  Every process
+builds the same message list from the mesh alone, so every process
+issues the same collectives in the same order; none is issued inside a
+data-dependent branch.
 
 Reductions add (or take the max) in shard-index order on every shard,
 so a single-process run and a multi-process run of one mesh give the
@@ -33,6 +35,17 @@ def axis_index(mesh, coord, axis: str) -> int:
 
 def _peer(coord, ax: int, i: int):
     return coord[:ax] + (i,) + coord[ax + 1:]
+
+
+def comm_device() -> torch.device:
+    """Where this process packs and receives its cross-process messages:
+    under NCCL its own GPU (the current device, which
+    ``multihost.initialize`` set), under gloo the CPU.  A shard on
+    another device gets its payload by a device copy."""
+    import torch.distributed as dist
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
 
 
 def transfer(mesh, msgs, like):
@@ -53,7 +66,7 @@ def transfer(mesh, msgs, like):
             recv.setdefault(s_rank, []).append((key, dst))
     if send or recv:
         import torch.distributed as dist
-        comm = mesh.device(mesh.local[0])
+        comm = comm_device()
         # masks travel as bytes (not every backend takes bool)
         wire = torch.uint8 if like.dtype == torch.bool else like.dtype
         ops, bufs = [], {}

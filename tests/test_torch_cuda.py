@@ -486,6 +486,21 @@ def test_mesh_station_cuda_equals_cpu(dev):
     assert got and got == sorted(map(cs._key, ref[0][1]))
 
 
+def test_detector_running_sums_repeat_on_one_row(dev):
+    """The detector's running sums of a one-row stream on the card give
+    the same bits on every call (``correlator._row_cumsum``), the bits
+    of that row scanned in a batch of two."""
+    from radiosonde_auto_rx_tpu_torch.detect.correlator import \
+        _windowed_sums
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(2, 144000, generator=g, device=dev) * 0.3 + 0.01
+    lens = [2000, 4800, 7680]
+    first = _windowed_sums(x[:1], lens)
+    for _ in range(20):
+        assert torch.equal(_windowed_sums(x[:1], lens), first)
+    assert torch.equal(_windowed_sums(x, lens)[:1], first)
+
+
 def test_sharded_modules_cuda_equal_cpu(dev):
     """``make_station_step`` on a (4, 2) virtual mesh of the card and
     ``make_pp_demod_pipeline`` on a 3-stage one: the CPU port's bits on

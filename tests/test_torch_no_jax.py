@@ -30,7 +30,9 @@ frames decoded by spawned pool workers) and the demod CLI, with
 packages that raise on import, so that the pool's workers, which inherit
 the environment, are blocked too.  Another
 child runs the two drivers: the bench's JSON line on the CPU at a small
-geometry and the entry step (``graft_entry.entry``).  A static
+geometry and the entry step (``graft_entry.entry``).  Another runs
+``chip_smoke.py --mesh-worker`` (it imports its modes' modules and
+refuses: no GPU here) and builds phase 15's host inputs.  A static
 check keeps ``import jax`` and imports of the JAX package out of the
 port's files and the smoke script.
 """
@@ -226,8 +228,29 @@ print(json.dumps(out))
 """
 
 
-def _child(code):
-    res = subprocess.run([sys.executable, "-c", code, str(ROOT)],
+MESH_CHILD = BLOCKER + r"""
+import contextlib, io
+import numpy as np
+work = sys.argv[2]
+err = io.StringIO()
+with contextlib.redirect_stderr(err):
+    rc = cs.cli(["--mesh-worker", work, "file://" + work + "/store", "2",
+                 "0", "fixture,production,headline,pp"])
+np.save(work + "/fixture.npy", cs.fixture_captures())
+exp, slots = cs.production_plan(cs.PROD_B)
+out = dict(rc=rc, err=err.getvalue(), actives=int((exp >= 0).sum()),
+           experts=sorted({int(e) for e in exp[exp >= 0]}),
+           slots=len(set(slots.tolist())), microbatches=cs.pp_input()[1],
+           worker_modules=sorted(m for m in sys.modules if m.startswith(
+               "radiosonde_auto_rx_tpu_torch.parallel.")))
+out["blocked"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in BLOCKED)
+print(json.dumps(out))
+"""
+
+
+def _child(code, *args):
+    res = subprocess.run([sys.executable, "-c", code, str(ROOT), *args],
                          capture_output=True, text=True, timeout=300,
                          cwd=ROOT)
     assert res.returncode == 0, res.stderr[-4000:]
@@ -394,6 +417,32 @@ def test_demod_cli_runs_without_jax(tmp_path):
     assert len(lines) >= 15
     assert float(lines[-1].split("FSK BER")[1].split(",")[0]) < 0.01
     assert (run / "out.f32").stat().st_size > 4 * 0.9 * len(tx)
+
+
+def test_mesh_worker_runs_without_jax(tmp_path):
+    """``chip_smoke.py --mesh-worker`` (phase 15's process of an NCCL
+    group) with ``jax`` and the JAX package blocked: it imports the
+    modules of its modes, and on a host with fewer GPUs than processes
+    (none here) exits 1 naming the GPU count before joining any group.
+    Its host inputs build there too: ``fixture_captures`` equals
+    ``tests/station_fixture.py``'s captures, the production plan holds
+    ``bench.ACTIVES``' 10 actives of 5 types and 20 slots."""
+    import numpy as np
+    import station_fixture as fx
+    import chip_smoke as cs
+    out = _child(MESH_CHILD, str(tmp_path))
+    assert out["blocked"] == []
+    assert out["rc"] == 1
+    assert "needs 2 GPUs" in out["err"] and "found 0" in out["err"]
+    assert {"radiosonde_auto_rx_tpu_torch.parallel.multihost",
+            "radiosonde_auto_rx_tpu_torch.parallel.pp",
+            "radiosonde_auto_rx_tpu_torch.parallel.station_step"} <= set(
+                out["worker_modules"])
+    assert list(tmp_path.iterdir()) == [tmp_path / "fixture.npy"]
+    np.testing.assert_array_equal(np.load(tmp_path / "fixture.npy"),
+                                  fx.make_wide_captures(cs.FX_TS))
+    assert out["actives"] == 10 and len(out["experts"]) == 5
+    assert out["slots"] == 20 and out["microbatches"] > 3
 
 
 def test_no_jax_import_in_port_sources():
