@@ -25,7 +25,10 @@ import logging
 import multiprocessing as mp
 import os
 import queue as queue_mod
+import time
 import traceback
+
+from radiosonde_auto_rx_tpu_torch.utils import probe
 
 log = logging.getLogger("frame_plane")
 
@@ -35,8 +38,10 @@ def _build_decoder(model_name: str, kwargs: dict):
     return get_model(model_name)(**kwargs)
 
 
-def _worker_main(inq, outq):
-    """Worker loop: owns {freq -> (model_name, decoder)} state."""
+def _worker_main(inq, outq, w=0):
+    """Worker loop: owns {freq -> (model_name, decoder)} state.  Each
+    result carries the decode's timing: (worker ``w``, pid, start, end
+    on ``time.time_ns()``, model, frames)."""
     decoders = {}
     while True:
         msg = inq.get()
@@ -53,15 +58,18 @@ def _worker_main(inq, outq):
             continue
         # ("decode", ticket, fz, model_name, kwargs, bits, soft)
         _, ticket, fz, model_name, kwargs, bits, soft = msg
+        t0 = time.time_ns()
         try:
             st = decoders.get(fz)
             if st is None or st[0] != model_name:
                 st = (model_name, _build_decoder(model_name, kwargs))
                 decoders[fz] = st
             telems = st[1].decode_bits(bits, soft)
-            outq.put((ticket, telems, None))
+            err = None
         except Exception:
-            outq.put((ticket, [], traceback.format_exc()))
+            telems, err = [], traceback.format_exc()
+        outq.put((ticket, telems, err, (w, os.getpid(), t0, time.time_ns(),
+                                        model_name, len(telems))))
 
 
 class FramePlane:
@@ -70,7 +78,12 @@ class FramePlane:
     decode() enqueues one channel's bit stream and returns a ticket;
     gather() blocks until every outstanding ticket resolved and returns
     {ticket: telemetry_list}.  With ``workers=0`` decode() runs inline
-    (identical semantics, zero processes)."""
+    (identical semantics, zero processes).
+
+    Each decode's timing (worker, pid, start and end ns, model, frames;
+    worker None inline) rides beside its result: gather() counts it in
+    ``decodes`` (a worker's decodes) and keeps it as a
+    ``frame_plane.decode`` span while ``utils.probe`` records."""
 
     def __init__(self, workers: int = 0):
         self.workers = int(workers)
@@ -80,6 +93,9 @@ class FramePlane:
         self._outq = None
         self._pending = 0
         self._next_ticket = 0
+        self._inline_results = {}
+        self._ctx = {}               # ticket -> probe.context() at decode
+        self.decodes = [0] * max(self.workers, 0)
 
     def _ensure_started(self):
         """Spawn the pool lazily on the first pooled decode: a station
@@ -103,9 +119,9 @@ class FramePlane:
         # import numpy-only decoder modules on startup.
         ctx = mp.get_context("spawn")
         self._outq = ctx.Queue()
-        for _ in range(self.workers):
+        for w in range(self.workers):
             q = ctx.Queue()
-            p = ctx.Process(target=_worker_main, args=(q, self._outq),
+            p = ctx.Process(target=_worker_main, args=(q, self._outq, w),
                             daemon=True)
             p.start()
             self._inqs.append(q)
@@ -126,14 +142,19 @@ class FramePlane:
         # __main__ is not spawnable and set workers = 0 — the inline
         # branch below must then handle THIS decode, not a later one
         self._ensure_started()
+        ctx = probe.context()
+        if ctx is not None:
+            self._ctx[ticket] = ctx
         if self.workers == 0:
             st = self._decoders.get(fz)
             if st is None or st[0] != model_name:
                 st = (model_name, _build_decoder(model_name, kwargs))
                 self._decoders[fz] = st
+            t0 = time.time_ns()
             telems = st[1].decode_bits(bits, soft)
-            self._inline_results = getattr(self, "_inline_results", {})
-            self._inline_results[ticket] = telems
+            self._inline_results[ticket] = (
+                telems, (None, os.getpid(), t0, time.time_ns(), model_name,
+                         len(telems)))
             return ticket
         w = self._route(fz)
         if not self._procs[w].is_alive():
@@ -155,7 +176,7 @@ class FramePlane:
                           "respawning", w, p.exitcode)
                 q = ctx.Queue()
                 np_ = ctx.Process(target=_worker_main,
-                                  args=(q, self._outq), daemon=True)
+                                  args=(q, self._outq, w), daemon=True)
                 np_.start()
                 self._inqs[w] = q
                 self._procs[w] = np_
@@ -165,13 +186,25 @@ class FramePlane:
         A worker traceback is logged and yields an empty list — one bad
         channel cannot take down the capture loop."""
         if self.workers == 0:
-            res = getattr(self, "_inline_results", {})
-            self._inline_results = {}
-            return res
+            done, self._inline_results = self._inline_results, {}
+        else:
+            with probe.span("frame_plane.gather", tickets=self._pending):
+                done = self._gather_pool(timeout)
+        for ticket, (_, tm) in done.items():
+            if tm[0] is not None:
+                self.decodes[tm[0]] += 1
+            probe.add_span("frame_plane.decode", tm[2], tm[3],
+                           self._ctx.get(ticket), tm[1], worker=tm[0],
+                           model=tm[4], frames=tm[5])
+        self._ctx = {}
+        return {ticket: telems for ticket, (telems, _) in done.items()}
+
+    def _gather_pool(self, timeout: float) -> dict:
+        """{ticket: (telemetry, timing)} of every outstanding ticket."""
         out = {}
         while self._pending > 0:
             try:
-                ticket, telems, err = self._outq.get(timeout=timeout)
+                ticket, telems, err, tm = self._outq.get(timeout=timeout)
             except queue_mod.Empty:
                 log.error("frame plane: %d tickets unresolved after %.0fs",
                           self._pending, timeout)
@@ -184,7 +217,7 @@ class FramePlane:
             self._pending -= 1
             if err:
                 log.error("frame plane worker error:\n%s", err)
-            out[ticket] = telems
+            out[ticket] = (telems, tm)
         return out
 
     def drop(self, fz: int):

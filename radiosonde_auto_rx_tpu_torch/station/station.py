@@ -84,12 +84,16 @@ from radiosonde_auto_rx_tpu_torch.station.config import default_config
 from radiosonde_auto_rx_tpu_torch.station.frame_plane import FramePlane
 from radiosonde_auto_rx_tpu_torch.station.telemetry import (
     RealtimeVelocityFilter, enrich_telemetry, telemetry_filter)
+from radiosonde_auto_rx_tpu_torch.utils import probe
 
 log = logging.getLogger("station")
 
 
 def _np(t):
-    return t.detach().cpu().numpy()
+    """A tensor's host copy: on a card, the host waits here for the work
+    that makes it."""
+    with probe.span("station.d2h"):
+        return t.detach().cpu().numpy()
 
 
 class _BandProfile:
@@ -175,6 +179,7 @@ class Station:
         self._defer_scan = set()     # deferred keys whose target came
                                      # from a scan peak (absorb)
         self._steady_tick = -1
+        self._block_seq = 0          # the spans' block id, a dispatch
 
     # ------------------------------------------------------------------ #
 
@@ -245,14 +250,16 @@ class Station:
         """Wideband input -> float32 [2, T] planes on the device.  Host
         complex is split on the host; int16 (cs16) and uint8 (cu8) wire
         planes are scaled on the device after a native-width copy."""
-        if isinstance(x, torch.Tensor):
-            t = x.to(self.device)
-        else:
+        if not isinstance(x, torch.Tensor):
             x = np.asarray(x)
             if np.iscomplexobj(x):
                 x = np.stack([x.real, x.imag]).astype(np.float32)
-            t = torch.from_numpy(np.require(x, None, ("C", "W"))).to(
-                self.device)
+            x = torch.from_numpy(np.require(x, None, ("C", "W")))
+        if x.device.type == self.device.type:
+            t = x.to(self.device)
+        else:
+            with probe.span("station.h2d"):
+                t = x.to(self.device)
         if t.is_complex():
             return torch.stack([t.real, t.imag]).float()
         if t.dim() != 2 or t.shape[0] != 2:
@@ -281,9 +288,12 @@ class Station:
         if self.config["only_scan"]:
             return self.scan_from_psd(None)
         planes = self._wide_planes(wideband_iq)
-        _, psd = power_spectrum(planes[None], self.device, nfft=2048,
-                                fs=self.fs_wide, hop=8192)
-        return self.scan_from_psd(psd[0], db=True)
+        # the PSD's launch and its copy back, which waits for it
+        with probe.span("station.d2h", of="psd"):
+            _, psd = power_spectrum(planes[None], self.device, nfft=2048,
+                                    fs=self.fs_wide, hop=8192)
+        with probe.span("station.policy"):
+            return self.scan_from_psd(psd[0], db=True)
 
     def scan_from_psd(self, psd, db: bool = False) -> list:
         """Candidates (channel, offset) from a wideband PSD row (raw
@@ -462,55 +472,56 @@ class Station:
         self._offsets = {}
         self._ext_off = {}
         cands = self.scan(planes) if self.scan_enabled else []
-        # row allocation: each task/candidate frequency gets one row of
-        # the channel bank.  On-grid rows are PFB channels; off-grid
-        # rows are recentered extractions scattered over (or, when two
-        # sondes share a channel, appended after) the PFB rows.
-        rec = {}                     # row < n_chan -> extraction f_rel
-        extra = []                   # appended rows' extraction f_rel
-        row_alloc = {}               # row -> f_abs
+        with probe.span("station.policy"):
+            # row allocation: each task/candidate frequency gets one row of
+            # the channel bank.  On-grid rows are PFB channels; off-grid
+            # rows are recentered extractions scattered over (or, when two
+            # sondes share a channel, appended after) the PFB rows.
+            rec = {}                     # row < n_chan -> extraction f_rel
+            extra = []                   # appended rows' extraction f_rel
+            row_alloc = {}               # row -> f_abs
 
-        def _alloc(f_abs: float) -> int:
-            ci = self.channel_of_freq(f_abs)
-            off = f_abs - self._chan_center(ci)
-            if ci not in row_alloc:
-                row = ci
-                if abs(off) >= RECENTER_MIN_HZ:
-                    rec[row] = float(prof.freqs[ci]) + off
-                    self._ext_off[row] = float(off)
-            elif abs(row_alloc[ci] - f_abs) < 1.0:
-                return ci
-            else:
-                # a second task inside one channel: its own recentered
-                # row, appended after the PFB rows, EXTRACTED at f_abs
-                # (the drift-retune anchor)
-                row = n_chan + len(extra)
-                extra.append(float(prof.freqs[ci]) + off)
-                self._ext_off[row] = float(f_abs)
-            row_alloc[row] = float(f_abs)
-            self._offsets[row] = f_abs - (
-                self._chan_center(row) if row < n_chan else 0.0)
-            return row
+            def _alloc(f_abs: float) -> int:
+                ci = self.channel_of_freq(f_abs)
+                off = f_abs - self._chan_center(ci)
+                if ci not in row_alloc:
+                    row = ci
+                    if abs(off) >= RECENTER_MIN_HZ:
+                        rec[row] = float(prof.freqs[ci]) + off
+                        self._ext_off[row] = float(off)
+                elif abs(row_alloc[ci] - f_abs) < 1.0:
+                    return ci
+                else:
+                    # a second task inside one channel: its own recentered
+                    # row, appended after the PFB rows, EXTRACTED at f_abs
+                    # (the drift-retune anchor)
+                    row = n_chan + len(extra)
+                    extra.append(float(prof.freqs[ci]) + off)
+                    self._ext_off[row] = float(f_abs)
+                row_alloc[row] = float(f_abs)
+                self._offsets[row] = f_abs - (
+                    self._chan_center(row) if row < n_chan else 0.0)
+                return row
 
-        # manual tasks + known-active sondes within this capture
-        # re-decode every visit without needing a fresh detection
-        forced = {}                  # row -> type name
-        for fz, name in self.manual_tasks.items():
-            if self.in_capture(fz):
-                forced[_alloc(fz)] = name
-        for fz, st in self.active.items():
-            if self.in_capture(fz):
-                forced.setdefault(_alloc(fz), st["type"])
-        cand_rows = []
-        wide_cands = []
-        for ci, off in cands:
-            fq = self._chan_center(ci) + off
-            if int(round(fq)) in self._wide_freqs:
-                wide_cands.append(fq)
-                continue
-            row = _alloc(fq)
-            if row not in forced:
-                cand_rows.append(row)
+            # manual tasks + known-active sondes within this capture
+            # re-decode every visit without needing a fresh detection
+            forced = {}                  # row -> type name
+            for fz, name in self.manual_tasks.items():
+                if self.in_capture(fz):
+                    forced[_alloc(fz)] = name
+            for fz, st in self.active.items():
+                if self.in_capture(fz):
+                    forced.setdefault(_alloc(fz), st["type"])
+            cand_rows = []
+            wide_cands = []
+            for ci, off in cands:
+                fq = self._chan_center(ci) + off
+                if int(round(fq)) in self._wide_freqs:
+                    wide_cands.append(fq)
+                    continue
+                row = _alloc(fq)
+                if row not in forced:
+                    cand_rows.append(row)
         ch = channelize(planes, n_chan, self.device, prof.pfb_taps)
         ch = self._apply_recenter(ch, planes, prof, rec, extra)
         n_rows = n_chan + len(extra)
@@ -518,8 +529,9 @@ class Station:
         if cand_rows:
             # the profile's detector: its prescreen rejects empty rows
             # first when there are 8 or more candidates
-            detections = prof.detector.detect(ch.index_select(
-                0, torch.tensor(cand_rows, device=ch.device)))
+            with probe.span("station.detect", rows=len(cand_rows)):
+                detections = prof.detector.detect(ch.index_select(
+                    0, torch.tensor(cand_rows, device=ch.device)))
             for row, dets in zip(cand_rows, detections):
                 if not dets:
                     continue
@@ -539,7 +551,8 @@ class Station:
                         self._offsets[row] = self._offsets.get(row, 0.0) \
                             + float(det.freq_offset)
                     tasks.append((row, name, det))
-        tasks = self._dedupe_tasks(tasks)
+        with probe.span("station.policy"):
+            tasks = self._dedupe_tasks(tasks)
         # one batched demod call per type
         telemetry_out = []
         for name, items in self.group_tasks_by_type(tasks, n_rows).items():
@@ -603,8 +616,16 @@ class Station:
         if centers is None:
             centers = [self.center_freq] * len(blocks)
         centers = [float(c) for c in centers]
+        self._block_seq += 1
+        seq = self._block_seq
         if self.mesh is None or any(self.profile(c).wide for c in centers):
-            return ("seq", list(blocks), centers)
+            return ("seq", list(blocks), centers, seq)
+        with probe.block(seq):
+            return self._dispatch_batch(blocks, centers) + (seq,)
+
+    def _dispatch_batch(self, blocks, centers):
+        """``captures_dispatch`` on a mesh: the pending tuple without its
+        block id."""
         prof = self.profile(centers[0])
         step = self._step(prof)
         planes = [self._wide_planes(b) for b in blocks]
@@ -692,16 +713,18 @@ class Station:
     def captures_collect(self, pending) -> list:
         """Finish a ``captures_dispatch`` batch: host scan/task policy,
         speculation check, host frame decode (or, on the sequential
-        route, ``process_capture`` per block)."""
-        if pending[0] == "seq":
-            _, blocks, centers = pending
-            out = []
-            for b, c in zip(blocks, centers):
-                out.extend(self.process_capture(b, center_freq_hz=c))
-            return out
-        _, step, prof, wide, chf, psd, B, centers, steady = pending
-        return self._collect_sharded(step, prof, wide, chf, psd, B,
-                                     centers, steady)
+        route, ``process_capture`` per block).  The pending tuple's last
+        item is its block id, which every span of the collect carries."""
+        with probe.block(pending[-1]):
+            if pending[0] == "seq":
+                _, blocks, centers, _ = pending
+                out = []
+                for b, c in zip(blocks, centers):
+                    out.extend(self.process_capture(b, center_freq_hz=c))
+                return out
+            _, step, prof, wide, chf, psd, B, centers, steady, _ = pending
+            return self._collect_sharded(step, prof, wide, chf, psd, B,
+                                         centers, steady)
 
     def _collect_sharded(self, step, prof, wide, chf, psd, B,
                          centers, steady) -> list:
@@ -721,110 +744,113 @@ class Station:
     def _collect_sharded_inner(self, step, prof, wide, chf, psd, B,
                                centers, steady) -> list:
         n_chan = prof.n_chan
-        sharded = isinstance(chf, dict)
-        if sharded:
-            psd = unshard(psd, self.mesh, ROWS)
-        psd_np = None if psd is None else _np(psd)
+        with probe.span("station.policy"):
+            sharded = isinstance(chf, dict)
+            if sharded:
+                psd = unshard(psd, self.mesh, ROWS)
+            psd_np = None if psd is None else _np(psd)
 
-        # host policy per block: scan peaks + task state -> candidates
-        # and forced tasks (manual/active)
-        tasks = {}                   # global cid -> (name, det)
-        cand = []
-        cand_strength = {}           # cid -> PSD dB at the channel
-        cid_off = {}                 # cid -> recentering offset (Hz)
-        rec = {}                     # cid -> extraction f_rel
-        collide = []                 # (b, f_abs): 2nd sonde in a channel
-        wide_host = []               # (b, f_abs): wideband candidates
-        for b in range(B):
-            self.center_freq = centers[b]
-            self._offsets = {}
-            cands_b = (self.scan_from_psd(psd_np[b])
-                       if self.scan_enabled and psd_np is not None
-                       else [])
-            forced = {}              # ci -> (name, f_abs)
-            for fz, name in self.manual_tasks.items():
-                if self.in_capture(fz):
-                    ci = self.channel_of_freq(fz)
-                    if ci in forced and abs(forced[ci][1] - fz) >= 1.0:
-                        collide.append((b, float(fz), name))
-                        continue
-                    forced[ci] = (name, float(fz))
-            for fz, st_a in self.active.items():
-                if self.in_capture(fz):
-                    ci = self.channel_of_freq(fz)
-                    if ci in forced and \
-                            abs(forced[ci][1] - fz) >= 1.0:
-                        if not any(abs(fz - c_f) < 1.0
-                                   for _, c_f, _ in collide):
-                            collide.append((b, float(fz), None))
-                        continue
-                    forced.setdefault(ci, (st_a["type"], float(fz)))
-            for ci, (name, f_abs) in forced.items():
-                cid = b * n_chan + ci
-                tasks[cid] = (name, None)
-                off = f_abs - self._chan_center(ci)
-                cid_off[cid] = off
-                if abs(off) >= RECENTER_MIN_HZ:
-                    rec[cid] = float(prof.freqs[ci]) + off
-            if not cands_b:
-                continue
-            db = 10.0 * np.log10(np.maximum(psd_np[b], 1e-20))
-            nfft = db.shape[-1]
-            for ci, off in cands_b:
-                cid = b * n_chan + ci
-                fq = self._chan_center(ci) + off
-                if int(round(fq)) in self._wide_freqs:
-                    wide_host.append((b, fq))
+            # host policy per block: scan peaks + task state -> candidates
+            # and forced tasks (manual/active)
+            tasks = {}                   # global cid -> (name, det)
+            cand = []
+            cand_strength = {}           # cid -> PSD dB at the channel
+            cid_off = {}                 # cid -> recentering offset (Hz)
+            rec = {}                     # cid -> extraction f_rel
+            collide = []                 # (b, f_abs): 2nd sonde in a channel
+            wide_host = []               # (b, f_abs): wideband candidates
+            for b in range(B):
+                self.center_freq = centers[b]
+                self._offsets = {}
+                cands_b = (self.scan_from_psd(psd_np[b])
+                           if self.scan_enabled and psd_np is not None
+                           else [])
+                forced = {}              # ci -> (name, f_abs)
+                for fz, name in self.manual_tasks.items():
+                    if self.in_capture(fz):
+                        ci = self.channel_of_freq(fz)
+                        if ci in forced and abs(forced[ci][1] - fz) >= 1.0:
+                            collide.append((b, float(fz), name))
+                            continue
+                        forced[ci] = (name, float(fz))
+                for fz, st_a in self.active.items():
+                    if self.in_capture(fz):
+                        ci = self.channel_of_freq(fz)
+                        if ci in forced and \
+                                abs(forced[ci][1] - fz) >= 1.0:
+                            if not any(abs(fz - c_f) < 1.0
+                                       for _, c_f, _ in collide):
+                                collide.append((b, float(fz), None))
+                            continue
+                        forced.setdefault(ci, (st_a["type"], float(fz)))
+                for ci, (name, f_abs) in forced.items():
+                    cid = b * n_chan + ci
+                    tasks[cid] = (name, None)
+                    off = f_abs - self._chan_center(ci)
+                    cid_off[cid] = off
+                    if abs(off) >= RECENTER_MIN_HZ:
+                        rec[cid] = float(prof.freqs[ci]) + off
+                if not cands_b:
                     continue
-                if cid in tasks or cid in cid_off:
-                    # a second sonde in a channel whose row is taken
-                    collide.append((b, fq, None))
-                    continue
-                cand.append(cid)
-                cid_off[cid] = off
-                if abs(off) >= RECENTER_MIN_HZ:
-                    rec[cid] = float(prof.freqs[ci]) + off
-                # the candidate's PSD neighborhood (for overflow rank)
-                k = int(round((prof.freqs[ci] + off) / self.fs_wide *
-                              nfft)) + nfft // 2
-                lo = max(0, k - nfft // (2 * n_chan))
-                cand_strength[cid] = float(
-                    db[lo:k + nfft // (2 * n_chan) + 1].max())
-        # recenter off-grid rows before demod.  The fused dispatch
-        # already recentered the predicted rows; only new/changed rows
-        # re-extract here, and rows the dispatch recentered but the
-        # (post-retune) policy no longer wants are restored to the
-        # channel center.  The split dispatch recentered none.
-        s_rec = steady["rec"] if steady else {}
-        restore = {cid: float(prof.freqs[cid % n_chan])
-                   for cid in s_rec if cid not in rec}
-        rec = {cid: f for cid, f in rec.items() if s_rec.get(cid) != f}
-        rec.update(restore)
-        # cid -> offset its row holds NOW
-        ext_cid = {cid: f_rel - float(prof.freqs[cid % n_chan])
-                   for cid, f_rel in {**s_rec, **rec}.items()}
-        chf = self._recenter_cids(chf, wide, prof, rec)
+                db = 10.0 * np.log10(np.maximum(psd_np[b], 1e-20))
+                nfft = db.shape[-1]
+                for ci, off in cands_b:
+                    cid = b * n_chan + ci
+                    fq = self._chan_center(ci) + off
+                    if int(round(fq)) in self._wide_freqs:
+                        wide_host.append((b, fq))
+                        continue
+                    if cid in tasks or cid in cid_off:
+                        # a second sonde in a channel whose row is taken
+                        collide.append((b, fq, None))
+                        continue
+                    cand.append(cid)
+                    cid_off[cid] = off
+                    if abs(off) >= RECENTER_MIN_HZ:
+                        rec[cid] = float(prof.freqs[ci]) + off
+                    # the candidate's PSD neighborhood (for overflow rank)
+                    k = int(round((prof.freqs[ci] + off) / self.fs_wide *
+                                  nfft)) + nfft // 2
+                    lo = max(0, k - nfft // (2 * n_chan))
+                    cand_strength[cid] = float(
+                        db[lo:k + nfft // (2 * n_chan) + 1].max())
+            # recenter off-grid rows before demod.  The fused dispatch
+            # already recentered the predicted rows; only new/changed rows
+            # re-extract here, and rows the dispatch recentered but the
+            # (post-retune) policy no longer wants are restored to the
+            # channel center.  The split dispatch recentered none.
+            s_rec = steady["rec"] if steady else {}
+            restore = {cid: float(prof.freqs[cid % n_chan])
+                       for cid in s_rec if cid not in rec}
+            rec = {cid: f for cid, f in rec.items() if s_rec.get(cid) != f}
+            rec.update(restore)
+            # cid -> offset its row holds NOW
+            ext_cid = {cid: f_rel - float(prof.freqs[cid % n_chan])
+                       for cid, f_rel in {**s_rec, **rec}.items()}
+            chf = self._recenter_cids(chf, wide, prof, rec)
 
-        # full-rate confirmation: exact type decisions (headcmp, M10/M20
-        # + iMet disambiguation).  Unlike the reference (which pads the
-        # slots for its compile cache), only real candidates go in.
-        S = step.n_conf_slots
-        if len(cand) > S:
-            order = np.argsort([cand_strength[c] for c in cand])[::-1]
-            # a persistent signal is re-nominated by the next PSD scan
-            log.warning("confirmation slots full: dropping the %d "
-                        "weakest of %d candidates (re-nominated by the "
-                        "next scan if still present)",
-                        len(cand) - S, len(cand))
-            cand = [cand[i] for i in order[:S]]
+            # full-rate confirmation: exact type decisions (headcmp, M10/M20
+            # + iMet disambiguation).  Unlike the reference (which pads the
+            # slots for its compile cache), only real candidates go in.
+            S = step.n_conf_slots
+            if len(cand) > S:
+                order = np.argsort([cand_strength[c] for c in cand])[::-1]
+                # a persistent signal is re-nominated by the next PSD scan
+                log.warning("confirmation slots full: dropping the %d "
+                            "weakest of %d candidates (re-nominated by the "
+                            "next scan if still present)",
+                            len(cand) - S, len(cand))
+                cand = [cand[i] for i in order[:S]]
         if cand:
             # a mesh of several shards takes every slot (-1 pads); one
             # shard only the real candidates
             slots = np.asarray(cand, np.int64)
             if sharded:
                 slots = np.concatenate([slots, np.full(S - len(cand), -1)])
-            conf = step.confirm(chf, slots)
-            for cid, dets in step.decide_confirmed(conf, slots).items():
+            with probe.span("station.detect", rows=len(cand)):
+                decided = step.decide_confirmed(step.confirm(chf, slots),
+                                                slots)
+            for cid, dets in decided.items():
                 if not dets:
                     continue
                 det = dets[0]
@@ -836,40 +862,41 @@ class Station:
                     if RECENTER_MIN_HZ <= abs(foff) <= 5e3:
                         cid_off[cid] = cid_off.get(cid, 0.0) + foff
 
-        # spacing rule over the fresh detections (the reference's
-        # sequential handle_scan_results semantics): forced tasks hold
-        # their ground, then stronger detections absorb weaker ones
-        # within decoder_spacing_limit
-        spacing = float(self.config.get("decoder_spacing_limit", 15e3))
+        with probe.span("station.policy"):
+            # spacing rule over the fresh detections (the reference's
+            # sequential handle_scan_results semantics): forced tasks hold
+            # their ground, then stronger detections absorb weaker ones
+            # within decoder_spacing_limit
+            spacing = float(self.config.get("decoder_spacing_limit", 15e3))
 
-        def _task_fz(cid):
-            b, ci = divmod(cid, n_chan)
-            self.center_freq = centers[b]
-            return self._chan_center(ci) + cid_off.get(cid, 0.0)
-
-        kept = [_task_fz(cid) for cid, (_, det) in tasks.items()
-                if det is None]
-        for cid, (_, det) in sorted(
-                ((c, v) for c, v in tasks.items() if v[1] is not None),
-                key=lambda kv: -kv[1][1].score):
-            fz = _task_fz(cid)
-            if any(abs(fz - g) < spacing for g in kept):
-                del tasks[cid]
-            else:
-                kept.append(fz)
-
-        # expert routing over the mesh; other types host-batched.  On a
-        # single ch shard there is nothing to route: every task is a host
-        # task (the per-type batch of only the types present)
-        exp_ids = np.full(-(-B // step.n_sh) * step.n_sh * n_chan, -1,
-                          np.int64)
-        host_tasks = {}              # block -> [(ci, name, det)]
-        for cid, (name, det) in tasks.items():
-            if step.n_sh > 1 and name in EXPERT_TYPES:
-                exp_ids[cid] = EXPERT_TYPES.index(name)
-            else:
+            def _task_fz(cid):
                 b, ci = divmod(cid, n_chan)
-                host_tasks.setdefault(b, []).append((ci, name, det))
+                self.center_freq = centers[b]
+                return self._chan_center(ci) + cid_off.get(cid, 0.0)
+
+            kept = [_task_fz(cid) for cid, (_, det) in tasks.items()
+                    if det is None]
+            for cid, (_, det) in sorted(
+                    ((c, v) for c, v in tasks.items() if v[1] is not None),
+                    key=lambda kv: -kv[1][1].score):
+                fz = _task_fz(cid)
+                if any(abs(fz - g) < spacing for g in kept):
+                    del tasks[cid]
+                else:
+                    kept.append(fz)
+
+            # expert routing over the mesh; other types host-batched.  On a
+            # single ch shard there is nothing to route: every task is a host
+            # task (the per-type batch of only the types present)
+            exp_ids = np.full(-(-B // step.n_sh) * step.n_sh * n_chan, -1,
+                              np.int64)
+            host_tasks = {}              # block -> [(ci, name, det)]
+            for cid, (name, det) in tasks.items():
+                if step.n_sh > 1 and name in EXPERT_TYPES:
+                    exp_ids[cid] = EXPERT_TYPES.index(name)
+                else:
+                    b, ci = divmod(cid, n_chan)
+                    host_tasks.setdefault(b, []).append((ci, name, det))
         telems = []
         if (exp_ids >= 0).any():
             res = step.gather_routed(step.route_demod(chf, exp_ids))
@@ -878,27 +905,28 @@ class Station:
                 int(wide.shape[-1]) // n_chan, cid_off, ext_cid))
         fused_items = []             # (name, j, cid) served by steady
         for b, items in host_tasks.items():
-            self.center_freq = centers[b]
-            self._offsets = {ci: cid_off.get(b * n_chan + ci, 0.0)
-                             for ci, _, _ in items}
-            self._ext_off = {ci: ext_cid.get(b * n_chan + ci, 0.0)
-                             for ci, _, _ in items}
-            self._cur_wide = wide[b]
-            legacy = []
-            for ci, name, det in items:
-                cid = b * n_chan + ci
-                fp = steady["fused_pos"].get(cid) if steady else None
-                # speculation check: same type, same task frequency, and
-                # no re-extraction pending for the row — else the split
-                # path re-demodulates this channel
-                if det is None and fp is not None and fp[0] == name and \
-                        cid not in rec and \
-                        abs(steady["pred"][cid][1] -
-                            (self._chan_center(ci) +
-                             cid_off.get(cid, 0.0))) < 1.0:
-                    fused_items.append((name, fp[1], cid))
-                else:
-                    legacy.append((ci, name, det))
+            with probe.span("station.policy"):
+                self.center_freq = centers[b]
+                self._offsets = {ci: cid_off.get(b * n_chan + ci, 0.0)
+                                 for ci, _, _ in items}
+                self._ext_off = {ci: ext_cid.get(b * n_chan + ci, 0.0)
+                                 for ci, _, _ in items}
+                self._cur_wide = wide[b]
+                legacy = []
+                for ci, name, det in items:
+                    cid = b * n_chan + ci
+                    fp = steady["fused_pos"].get(cid) if steady else None
+                    # speculation check: same type, same task frequency, and
+                    # no re-extraction pending for the row — else the split
+                    # path re-demodulates this channel
+                    if det is None and fp is not None and fp[0] == name and \
+                            cid not in rec and \
+                            abs(steady["pred"][cid][1] -
+                                (self._chan_center(ci) +
+                                 cid_off.get(cid, 0.0))) < 1.0:
+                        fused_items.append((name, fp[1], cid))
+                    else:
+                        legacy.append((ci, name, det))
             for name, grp in self.group_tasks_by_type(
                     legacy, n_chan).items():
                 if not sharded:
@@ -915,9 +943,13 @@ class Station:
                 telems.extend(self.decode_channels(
                     rows, [(k, det) for k, (_, det) in enumerate(grp)],
                     name, chan_map={k: ci for k, (ci, _) in enumerate(grp)}))
+        if steady and steady["fused_pos"]:
+            # the rows the dispatch demodulated speculatively, against
+            # those the speculation check served (``fused_channels``)
+            probe.count("spec_predicted", len(steady["fused_pos"]),
+                        self.stats)
         if fused_items:
-            self.stats["fused_channels"] = \
-                self.stats.get("fused_channels", 0) + len(fused_items)
+            probe.count("fused_channels", len(fused_items), self.stats)
             telems.extend(self._decode_fused(
                 steady["fused"], fused_items, centers, n_chan, cid_off,
                 ext_cid))
@@ -1324,6 +1356,9 @@ class Station:
         output order matches the inline path.  ``meta`` maps a ticket to
         ``(name, fz, snr_db, det, f_resid, f_demod)``."""
         results = self.frame_plane.gather()
+        if self.frame_plane.workers > 0:
+            # decodes a worker: the pool's balance, for the operator
+            self.stats["pool_decodes"] = list(self.frame_plane.decodes)
         out = []
         for ticket in sorted(meta):
             name, fz, snr_db, det, f_resid, f_demod = meta[ticket]
@@ -1381,8 +1416,11 @@ class Station:
                                                            model_name)),
                 last_ok=prev_ok)
             self.active[fz] = state
-        raw_telems = state["decoder"].decode_bits(
-            bits, None if soft is None else -soft)
+        with probe.span("frame_plane.decode", worker=None,
+                        model=model_name) as sp:
+            raw_telems = state["decoder"].decode_bits(
+                bits, None if soft is None else -soft)
+            sp.set(frames=len(raw_telems))
         return self._post_frames(fz, state, raw_telems, snr_db, det,
                                  f_resid, f_demod)
 

@@ -220,11 +220,97 @@ CHANGED = {
         ("        power = np.asarray(power)\n",
          ""),
     ],
-    # one log line when the workers start
+    # one log line when the workers start; each decode's timing rides
+    # beside its result (the worker's index, pid, start and end on
+    # ``time.time_ns()``), kept as a ``utils.probe`` span and counted a
+    # worker; the wait on the pool is a span
     "station/frame_plane.py": [
         ("            self._procs.append(p)\n",
          "            self._procs.append(p)\n"
          '        log.info("frame plane: %d decoder workers started", self.workers)\n'),
+        ('import traceback\n',
+         'import time\n'
+         'import traceback\n'
+         '\n'
+         'from radiosonde_auto_rx_tpu_torch.utils import probe\n'),
+        ('def _worker_main(inq, outq):\n'
+         '    """Worker loop: owns {freq -> (model_name, decoder)} state."""\n',
+         'def _worker_main(inq, outq, w=0):\n'
+         '    """Worker loop: owns {freq -> (model_name, decoder)} state.  Each\n'
+         "    result carries the decode's timing: (worker ``w``, pid, start, end\n"
+         '    on ``time.time_ns()``, model, frames)."""\n'),
+        ('        _, ticket, fz, model_name, kwargs, bits, soft = msg\n',
+         '        _, ticket, fz, model_name, kwargs, bits, soft = msg\n'
+         '        t0 = time.time_ns()\n'),
+        ('            outq.put((ticket, telems, None))\n'
+         '        except Exception:\n'
+         '            outq.put((ticket, [], traceback.format_exc()))\n',
+         '            err = None\n'
+         '        except Exception:\n'
+         '            telems, err = [], traceback.format_exc()\n'
+         '        outq.put((ticket, telems, err, (w, os.getpid(), t0, time.time_ns(),\n'
+         '                                        model_name, len(telems))))\n'),
+        ('    (identical semantics, zero processes)."""\n',
+         '    (identical semantics, zero processes).\n'
+         '\n'
+         "    Each decode's timing (worker, pid, start and end ns, model, frames;\n"
+         '    worker None inline) rides beside its result: gather() counts it in\n'
+         "    ``decodes`` (a worker's decodes) and keeps it as a\n"
+         '    ``frame_plane.decode`` span while ``utils.probe`` records."""\n'),
+        ('        self._next_ticket = 0\n',
+         '        self._next_ticket = 0\n'
+         '        self._inline_results = {}\n'
+         '        self._ctx = {}               # ticket -> probe.context() at decode\n'
+         '        self.decodes = [0] * max(self.workers, 0)\n'),
+        ('        for _ in range(self.workers):\n'
+         '            q = ctx.Queue()\n'
+         '            p = ctx.Process(target=_worker_main, args=(q, self._outq),\n',
+         '        for w in range(self.workers):\n'
+         '            q = ctx.Queue()\n'
+         '            p = ctx.Process(target=_worker_main, args=(q, self._outq, w),\n'),
+        ('        self._ensure_started()\n',
+         '        self._ensure_started()\n'
+         '        ctx = probe.context()\n'
+         '        if ctx is not None:\n'
+         '            self._ctx[ticket] = ctx\n'),
+        ('            telems = st[1].decode_bits(bits, soft)\n'
+         '            self._inline_results = getattr(self, "_inline_results", {})\n'
+         '            self._inline_results[ticket] = telems\n',
+         '            t0 = time.time_ns()\n'
+         '            telems = st[1].decode_bits(bits, soft)\n'
+         '            self._inline_results[ticket] = (\n'
+         '                telems, (None, os.getpid(), t0, time.time_ns(), model_name,\n'
+         '                         len(telems)))\n'),
+        ('                                  args=(q, self._outq), daemon=True)\n',
+         '                                  args=(q, self._outq, w), daemon=True)\n'),
+        ('            res = getattr(self, "_inline_results", {})\n'
+         '            self._inline_results = {}\n'
+         '            return res\n'
+         '        out = {}\n'
+         '        while self._pending > 0:\n'
+         '            try:\n'
+         '                ticket, telems, err = self._outq.get(timeout=timeout)\n',
+         '            done, self._inline_results = self._inline_results, {}\n'
+         '        else:\n'
+         '            with probe.span("frame_plane.gather", tickets=self._pending):\n'
+         '                done = self._gather_pool(timeout)\n'
+         '        for ticket, (_, tm) in done.items():\n'
+         '            if tm[0] is not None:\n'
+         '                self.decodes[tm[0]] += 1\n'
+         '            probe.add_span("frame_plane.decode", tm[2], tm[3],\n'
+         '                           self._ctx.get(ticket), tm[1], worker=tm[0],\n'
+         '                           model=tm[4], frames=tm[5])\n'
+         '        self._ctx = {}\n'
+         '        return {ticket: telems for ticket, (telems, _) in done.items()}\n'
+         '\n'
+         '    def _gather_pool(self, timeout: float) -> dict:\n'
+         '        """{ticket: (telemetry, timing)} of every outstanding ticket."""\n'
+         '        out = {}\n'
+         '        while self._pending > 0:\n'
+         '            try:\n'
+         '                ticket, telems, err, tm = self._outq.get(timeout=timeout)\n'),
+        ('            out[ticket] = telems\n',
+         '            out[ticket] = (telems, tm)\n'),
     ],
     # ``apply_platform_env`` (JAX's backend) has no counterpart
     "utils/process.py": [
@@ -276,7 +362,8 @@ CHANGED = {
          "// Host-side native runtime for radiosonde_auto_rx_tpu.\n"),
     ],
     # tensors on any device are copied to the host; ``trace`` on
-    # torch.profiler (a Chrome trace in the log directory)
+    # torch.profiler (a Chrome trace in the log directory, with the span
+    # store's spans laid on its clock); the span store
     "utils/probe.py": [
         ("def probe_samp(name: str, arr):\n",
          "def _host(arr):\n"
@@ -316,6 +403,7 @@ CHANGED = {
          "        activities.append(ProfilerActivity.CUDA)\n"
          "    os.makedirs(log_dir, exist_ok=True)\n"
          "    prof = profile(activities=activities)\n"
+         "    t0 = time.time_ns()\n"
          "    prof.start()\n"
          "    try:\n"
          "        yield prof\n"
@@ -323,7 +411,251 @@ CHANGED = {
          "            torch.cuda.synchronize()\n"
          "    finally:\n"
          "        prof.stop()\n"
-         '        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))\n'),
+         '        path = os.path.join(log_dir, "trace.json")\n'
+         "        prof.export_chrome_trace(path)\n"
+         "        _write_spans(path, t0, time.time_ns())\n"),
+        ('"""\n'
+         '\n'
+         'import contextlib\n'
+         'import os\n'
+         'import threading\n',
+         '\n'
+         "The span store (``span``, ``count``, ``spans``) times the host's layers\n"
+         "on the device trace's clock: each span is stamped with ``time.time_ns()``,\n"
+         "the one clock of every process on the host, which ``torch.profiler``'s\n"
+         'Chrome trace also keeps (``baseTimeNanoseconds + ts``).  It records only\n'
+         'while a ``torch.profiler`` session records or after ``enable_spans()``.\n'
+         '"""\n'
+         '\n'
+         'import contextlib\n'
+         'import itertools\n'
+         'import json\n'
+         'import os\n'
+         'import sys\n'
+         'import threading\n'
+         'import time\n'
+         'from typing import NamedTuple\n'),
+        ('        _write_spans(path, t0, time.time_ns())\n',
+         '        _write_spans(path, t0, time.time_ns())\n'
+         '\n'
+         '\n'
+         '# ---------------------------------------------------------------------- #\n'
+         '# the span store\n'
+         '\n'
+         'class Span(NamedTuple):\n'
+         '    """One timed region of the host: ``t0``/``t1`` in ``time.time_ns()``;\n'
+         '    ``parent`` the ``id`` of the span open around it when it began (for\n'
+         "    a worker's span, when its work was handed over); ``block`` the\n"
+         '    station\'s block sequence number, shared by every span of one block."""\n'
+         '    name: str\n'
+         '    t0: int\n'
+         '    t1: int\n'
+         '    id: int\n'
+         '    parent: int | None\n'
+         '    block: int | None\n'
+         '    pid: int\n'
+         '    attrs: dict\n'
+         '\n'
+         '\n'
+         'MAX_SPANS = 1 << 18      # the store keeps the first this many\n'
+         '\n'
+         '_spans: list = []\n'
+         '_counts: dict = {}\n'
+         '_dropped = 0\n'
+         '_spans_on = False\n'
+         '_ids = itertools.count(1)\n'
+         '_profiler = None         # torch.autograd.profiler, once torch is loaded\n'
+         '\n'
+         '\n'
+         'class _Local(threading.local):\n'
+         '    def __init__(self):\n'
+         '        self.stack = []          # ids of the spans open on this thread\n'
+         '        self.block = None\n'
+         '\n'
+         '\n'
+         '_here = _Local()\n'
+         '\n'
+         '\n'
+         'def enable_spans(on: bool = True):\n'
+         '    """Record spans and window counts whether or not a profiler runs."""\n'
+         '    global _spans_on\n'
+         '    _spans_on = on\n'
+         '\n'
+         '\n'
+         'def _torch_profiler():\n'
+         '    """``torch.autograd.profiler`` once this process has loaded torch\n'
+         '    (never loaded here: a pool worker stays torch-free)."""\n'
+         '    global _profiler\n'
+         '    if _profiler is None:\n'
+         '        torch = sys.modules.get("torch")\n'
+         '        if torch is not None:\n'
+         '            _profiler = torch.autograd.profiler\n'
+         '    return _profiler\n'
+         '\n'
+         '\n'
+         'def recording() -> bool:\n'
+         '    """Whether spans are recorded: after ``enable_spans()``, or while a\n'
+         '    ``torch.profiler`` session records in this process."""\n'
+         '    if _spans_on:\n'
+         '        return True\n'
+         '    prof = _torch_profiler()\n'
+         '    return prof is not None and prof._is_profiler_enabled\n'
+         '\n'
+         '\n'
+         'def _keep(s: Span):\n'
+         '    global _dropped\n'
+         '    with _lock:\n'
+         '        if len(_spans) >= MAX_SPANS:\n'
+         '            _dropped += 1\n'
+         '        else:\n'
+         '            _spans.append(s)\n'
+         '\n'
+         '\n'
+         'class _Off:\n'
+         '    """The span while nothing records: enters nothing, keeps nothing."""\n'
+         '    __slots__ = ()\n'
+         '\n'
+         '    def __enter__(self):\n'
+         '        return self\n'
+         '\n'
+         '    def __exit__(self, *exc):\n'
+         '        return False\n'
+         '\n'
+         '    def set(self, **attrs):\n'
+         '        pass\n'
+         '\n'
+         '\n'
+         '_OFF = _Off()\n'
+         '\n'
+         '\n'
+         'class _On:\n'
+         '    __slots__ = ("name", "attrs", "id", "parent", "block", "t0", "_rf")\n'
+         '\n'
+         '    def __init__(self, name, attrs):\n'
+         '        self.name, self.attrs, self._rf = name, attrs, None\n'
+         '\n'
+         '    def __enter__(self):\n'
+         '        stack = _here.stack\n'
+         '        self.parent = stack[-1] if stack else None\n'
+         '        self.block = _here.block\n'
+         '        self.id = next(_ids)\n'
+         '        stack.append(self.id)\n'
+         '        self.t0 = time.time_ns()\n'
+         '        prof = _torch_profiler()\n'
+         '        if prof is not None and prof._is_profiler_enabled:\n'
+         '            self._rf = prof.record_function(self.name)\n'
+         '            self._rf.__enter__()\n'
+         '        return self\n'
+         '\n'
+         '    def __exit__(self, *exc):\n'
+         '        if self._rf is not None:\n'
+         '            self._rf.__exit__(*exc)\n'
+         '        t1 = time.time_ns()\n'
+         '        _here.stack.pop()\n'
+         '        _keep(Span(self.name, self.t0, t1, self.id, self.parent,\n'
+         '                   self.block, os.getpid(), self.attrs))\n'
+         '        return False\n'
+         '\n'
+         '    def set(self, **attrs):\n'
+         '        """Attributes known only at the span\'s end (a count returned)."""\n'
+         '        self.attrs.update(attrs)\n'
+         '\n'
+         '\n'
+         'def span(name: str, **attrs):\n'
+         '    """A context manager timing the region it wraps as one ``Span``\n'
+         '    (inside ``torch.profiler.record_function(name)`` while a profiler\n'
+         '    records); while nothing records, a shared object that does\n'
+         '    nothing."""\n'
+         '    if not recording():\n'
+         '        return _OFF\n'
+         '    return _On(name, attrs)\n'
+         '\n'
+         '\n'
+         'def context():\n'
+         '    """(the open span\'s id, the block) on this thread, for work handed to\n'
+         '    another process; None while nothing records."""\n'
+         '    if not recording():\n'
+         '        return None\n'
+         '    stack = _here.stack\n'
+         '    return (stack[-1] if stack else None, _here.block)\n'
+         '\n'
+         '\n'
+         'def add_span(name: str, t0: int, t1: int, ctx, pid: int, **attrs):\n'
+         '    """Keep a span timed elsewhere (a pool worker\'s, on the same clock)\n'
+         '    under ``ctx`` (``context()`` when its work was handed over)."""\n'
+         '    if ctx is None or not recording():\n'
+         '        return\n'
+         '    _keep(Span(name, t0, t1, next(_ids), ctx[0], ctx[1], pid, attrs))\n'
+         '\n'
+         '\n'
+         '@contextlib.contextmanager\n'
+         'def block(seq):\n'
+         '    """Every span begun inside carries block ``seq``."""\n'
+         '    prev, _here.block = _here.block, seq\n'
+         '    try:\n'
+         '        yield\n'
+         '    finally:\n'
+         '        _here.block = prev\n'
+         '\n'
+         '\n'
+         'def count(name: str, n: int = 1, into: dict | None = None):\n'
+         '    """Add ``n`` to ``into[name]`` (a station\'s ``stats``), always, and\n'
+         '    to the store\'s count of ``name`` while spans are recorded."""\n'
+         '    if into is not None:\n'
+         '        into[name] = into.get(name, 0) + n\n'
+         '    if recording():\n'
+         '        with _lock:\n'
+         '            _counts[name] = _counts.get(name, 0) + n\n'
+         '\n'
+         '\n'
+         'def spans() -> list:\n'
+         '    """The recorded spans, in the order they ended."""\n'
+         '    with _lock:\n'
+         '        return list(_spans)\n'
+         '\n'
+         '\n'
+         'def counts() -> dict:\n'
+         '    """The counts added while spans were recorded."""\n'
+         '    with _lock:\n'
+         '        return dict(_counts)\n'
+         '\n'
+         '\n'
+         'def spans_dropped() -> int:\n'
+         '    """Spans left out since the store filled (``MAX_SPANS``)."""\n'
+         '    return _dropped\n'
+         '\n'
+         '\n'
+         'def reset_spans():\n'
+         '    global _dropped\n'
+         '    with _lock:\n'
+         '        _spans.clear()\n'
+         '        _counts.clear()\n'
+         '        _dropped = 0\n'
+         '\n'
+         '\n'
+         'def _write_spans(path: str, t0: int, t1: int):\n'
+         '    """Adds the spans that began between ``t0`` and ``t1`` to the Chrome\n'
+         '    trace at ``path``, on its clock (``baseTimeNanoseconds``): this\n'
+         '    process\'s on a row of their own, each worker\'s on a row a worker."""\n'
+         '    with open(path) as f:\n'
+         '        doc = json.load(f)\n'
+         '    base = doc.get("baseTimeNanoseconds")\n'
+         '    if base is None:\n'
+         '        return\n'
+         '    me = os.getpid()\n'
+         '    for s in spans():\n'
+         '        if not t0 <= s.t0 <= t1:\n'
+         '            continue\n'
+         '        w = s.attrs.get("worker")\n'
+         '        doc["traceEvents"].append({\n'
+         '            "ph": "X", "cat": "program_span", "name": s.name,\n'
+         '            "pid": s.pid,\n'
+         '            "tid": "program spans" if s.pid == me else f"worker {w}",\n'
+         '            "ts": (s.t0 - base) / 1e3, "dur": (s.t1 - s.t0) / 1e3,\n'
+         '            "args": {**s.attrs, "block": s.block, "id": s.id,\n'
+         '                     "parent": s.parent}})\n'
+         '    with open(path, "w") as f:\n'
+         '        json.dump(doc, f)\n'),
     ],
     # the port's chain is ``torch``, on a given device (``--device``,
     # default ``cuda``); the case's prep and the off-grid extraction run

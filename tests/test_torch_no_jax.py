@@ -165,11 +165,16 @@ out = dict(points=[per_harness.run_point(t, e, 4, device=cpu, f_off=f)[0]
                                    ("DFM", 14.0, 20e3))])
 for k, v in dict(B=1, T_WIDE=480_000, CAP=2, REPS=1, TRIALS=1).items():
     setattr(profile_station, k, v)
+from radiosonde_auto_rx_tpu_torch.station import station
 with tempfile.TemporaryDirectory() as d:
     with probe.trace(d):
         stages = profile_station.profile(cpu)
+        station._np(torch.zeros(4))          # a station.d2h span
     import os
     out["trace"] = os.listdir(d)
+    with open(os.path.join(d, "trace.json")) as f:
+        out["program_spans"] = sorted({e["name"] for e in json.load(f)[
+            "traceEvents"] if e.get("cat") == "program_span"})
 out["stages"] = {k: v["device"] for k, v in stages.items()}
 out["blocked"] = sorted(m for m in sys.modules
                         if m.split(".")[0] in BLOCKED)
@@ -323,6 +328,8 @@ def test_tools_run_without_jax():
     assert len(out["stages"]) == 5 and \
         set(out["stages"].values()) == {"cpu"}
     assert out["trace"] == ["trace.json"]
+    # the program's spans are laid on the trace's own timeline
+    assert "station.d2h" in out["program_spans"]
 
 
 def test_tpu_forms_run_without_jax():
