@@ -1786,7 +1786,7 @@ def cli_phase(dev, card):
             decode_s.setdefault(workers, {}).setdefault(k, []).append(
                 v / len(res[2]))
         if workers:
-            out["routes"] = {fz: st.frame_plane._route(fz)
+            out["routes"] = {fz: st.frame_plane.owner.get(fz)
                              for fz in sorted(st.active)}
             procs = [p.pid for p in st.frame_plane._procs]
             apps = compute_pids()

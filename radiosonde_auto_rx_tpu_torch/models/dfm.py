@@ -204,22 +204,31 @@ class DFMDecoder:
         for inv, hdr in ((False, RAW_HEADER),
                          (True, "".join("1" if c == "0" else "0"
                                         for c in RAW_HEADER))):
-            starts = find_frame_starts(raw_bits, hdr, max_errors=2)
-            cands = []
+            starts = [int(s) for s in
+                      find_frame_starts(raw_bits, hdr, max_errors=2)]
+            cands = set()
             for s in starts:
                 for k in range(self.NFRMS):
-                    p = int(s) + k * stride
+                    p = s + k * stride
                     if p + 2 * (FRAME_BITS - 16) > len(raw_bits):
                         break
-                    cands.append(p)
-            cands.sort()
+                    cands.add(p)
+
+            def support(p):
+                # header hits on p's frame lattice: back-to-back frames
+                # give one a frame, data that looks like the header one
+                return sum(min((p - h) % stride, (h - p) % stride) <= 2
+                           for h in starts)
+            # a continuation frame may land a bit or two off another
+            # header's hit; never decode the same frame twice, and where
+            # two candidates overlap keep the better supported one, so
+            # that a header-like pattern inside a frame cannot shadow the
+            # true frames after it (the earlier one on a tie)
             done = []
-            for p in cands:
-                # a continuation frame may land a bit or two off another
-                # header's hit; never decode the same frame twice
-                if done and p - done[-1] < stride // 2:
-                    continue
-                done.append(p)
+            for p in sorted(cands, key=lambda p: (-support(p), p)):
+                if all(abs(p - q) >= stride // 2 for q in done):
+                    done.append(p)
+            for p in sorted(done):
                 raw = raw_bits[p - len(RAW_HEADER):
                                p + 2 * (FRAME_BITS - 16)]
                 if inv:

@@ -10,11 +10,20 @@ This plane is the TPU-native analogue of the reference's
 process-per-sonde decoder isolation (reference auto_rx/autorx/decode.py
 :1602-2002 runs one subprocess pipeline per active sonde): N worker
 processes, each owning the *stateful* frame decoders (RS41 subframe
-assembly, DFM serial confirmation, RS92 cal collection) for the
-frequencies routed to it.  Routing is by stable frequency hash so a
-sonde's decoder state always lives in the same worker.  The main
-process keeps the light parts: telemetry enrichment, filtering and
-exporter fan-out (station.py `_decode_frames` tail).
+assembly, DFM serial confirmation, RS92 cal collection) of the tasks
+placed on it.  A placement table in the main process, ``{fz: worker}``,
+puts a task on the least-loaded worker at its first decode: a worker's
+load is the sum of its tasks' costs, each an exponentially weighted mean
+of the task's measured decode ms a gather (a task not yet measured costs
+the mean of its model's measured tasks, else of all, else 1).  A task's
+decoder state lives in its worker, and ``rekey`` and ``drop`` go there.
+It changes worker only by an exact hand-over: once a gather has resolved
+every ticket (the pool idle), one task a gather moves from the most
+loaded worker to the least loaded one when that lowers the larger of the
+two loads by a clear margin — the owner pickles the decoder out and
+forgets it, the new worker takes it in.  The main process keeps the
+light parts: telemetry enrichment, filtering and exporter fan-out
+(station.py `_decode_frames` tail).
 
 Workers are plain numpy processes — they never touch JAX or the TPU.
 ``workers=0`` (the default) keeps the fully inline single-process
@@ -24,6 +33,7 @@ behavior.
 import logging
 import multiprocessing as mp
 import os
+import pickle
 import queue as queue_mod
 import time
 import traceback
@@ -31,6 +41,11 @@ import traceback
 from radiosonde_auto_rx_tpu_torch.utils import probe
 
 log = logging.getLogger("frame_plane")
+
+COST_ALPHA = 0.25    # a task's cost: its decode ms a gather, weighted over
+                     # ~4 gathers (an RS41's cut frame cycles in 4 blocks)
+MOVE_MARGIN = 0.1    # a move lowers the larger of the two loads by this share
+MOVE_HOLD = 4        # gathers a moved task stays put
 
 
 def _build_decoder(model_name: str, kwargs: dict):
@@ -41,7 +56,8 @@ def _build_decoder(model_name: str, kwargs: dict):
 def _worker_main(inq, outq, w=0):
     """Worker loop: owns {freq -> (model_name, decoder)} state.  Each
     result carries the decode's timing: (worker ``w``, pid, start, end
-    on ``time.time_ns()``, model, frames)."""
+    on ``time.time_ns()``, model, frames).  ``export`` hands a task's
+    state out pickled (and forgets it), ``import`` takes one in."""
     decoders = {}
     while True:
         msg = inq.get()
@@ -55,6 +71,21 @@ def _worker_main(inq, outq, w=0):
             st = decoders.pop(msg[1], None)
             if st is not None:
                 decoders[msg[2]] = st
+            continue
+        if op == "export":
+            st = decoders.pop(msg[1], None)
+            try:
+                blob, err = pickle.dumps(st), None
+            except Exception:
+                if st is not None:
+                    decoders[msg[1]] = st    # not handed over: kept here
+                blob, err = None, traceback.format_exc()
+            outq.put(("export", msg[1], blob, err))
+            continue
+        if op == "import":
+            st = pickle.loads(msg[2])
+            if st is not None:
+                decoders[msg[1]] = st
             continue
         # ("decode", ticket, fz, model_name, kwargs, bits, soft)
         _, ticket, fz, model_name, kwargs, bits, soft = msg
@@ -73,17 +104,23 @@ def _worker_main(inq, outq, w=0):
 
 
 class FramePlane:
-    """Affinity-routed decoder pool.
+    """Decoder pool with a placement table.
 
     decode() enqueues one channel's bit stream and returns a ticket;
     gather() blocks until every outstanding ticket resolved and returns
     {ticket: telemetry_list}.  With ``workers=0`` decode() runs inline
     (identical semantics, zero processes).
 
+    ``owner`` is the placement table, ``{fz: worker}``: a task is placed
+    on the least-loaded worker at its first decode, and its state stays
+    there until a hand-over at the end of a gather moves it (at most one
+    task a gather, counted in ``moves`` and as ``pool_moves``).
+
     Each decode's timing (worker, pid, start and end ns, model, frames;
     worker None inline) rides beside its result: gather() counts it in
-    ``decodes`` (a worker's decodes) and keeps it as a
-    ``frame_plane.decode`` span while ``utils.probe`` records."""
+    ``decodes`` (a worker's decodes), adds it to its task's cost, and
+    keeps it as a ``frame_plane.decode`` span while ``utils.probe``
+    records."""
 
     def __init__(self, workers: int = 0):
         self.workers = int(workers)
@@ -96,6 +133,12 @@ class FramePlane:
         self._inline_results = {}
         self._ctx = {}               # ticket -> probe.context() at decode
         self.decodes = [0] * max(self.workers, 0)
+        self.owner = {}              # the placement table: fz -> worker
+        self._model = {}             # fz -> model name of its last decode
+        self._cost = {}              # fz -> decode ms a gather (weighted)
+        self._hold = {}              # fz -> gathers before it may move
+        self._fz_of = {}             # outstanding ticket -> fz
+        self.moves = 0
 
     def _ensure_started(self):
         """Spawn the pool lazily on the first pooled decode: a station
@@ -130,8 +173,26 @@ class FramePlane:
 
     # ------------------------------------------------------------------ #
 
-    def _route(self, fz: int) -> int:
-        return int(fz) % self.workers
+    def _loads(self):
+        """(load a worker, cost a task) from the placement table."""
+        by_model, measured = {}, list(self._cost.values())
+        for fz, c in self._cost.items():
+            by_model.setdefault(self._model[fz], []).append(c)
+        mean = {m: sum(v) / len(v) for m, v in by_model.items()}
+        dflt = sum(measured) / len(measured) if measured else 1.0
+        cost = {fz: self._cost.get(fz, mean.get(self._model.get(fz), dflt))
+                for fz in self.owner}
+        load = [0.0] * self.workers
+        for fz, w in self.owner.items():
+            load[w] += cost[fz]
+        return load, cost
+
+    def tasks(self) -> list:
+        """Tasks a worker in the placement table."""
+        n = [0] * self.workers
+        for w in self.owner.values():
+            n[w] += 1
+        return n
 
     def decode(self, fz: int, model_name: str, kwargs: dict,
                bits, soft) -> int:
@@ -156,7 +217,13 @@ class FramePlane:
                 telems, (None, os.getpid(), t0, time.time_ns(), model_name,
                          len(telems)))
             return ticket
-        w = self._route(fz)
+        w = self.owner.get(fz)
+        if w is None:
+            load, _ = self._loads()
+            w = self.owner[fz] = min(range(self.workers),
+                                     key=lambda i: (load[i], i))
+        self._model[fz] = model_name
+        self._fz_of[ticket] = fz
         if not self._procs[w].is_alive():
             self._respawn_dead()
         self._inqs[w].put(
@@ -190,6 +257,10 @@ class FramePlane:
         else:
             with probe.span("frame_plane.gather", tickets=self._pending):
                 done = self._gather_pool(timeout)
+                self._measure(done)
+                if all(t in done for t in self._fz_of):
+                    self._rebalance(timeout)     # the pool is idle
+            self._fz_of = {}
         for ticket, (_, tm) in done.items():
             if tm[0] is not None:
                 self.decodes[tm[0]] += 1
@@ -214,38 +285,112 @@ class FramePlane:
                 self._pending = 0
                 self._respawn_dead()
                 break
+            if ticket == "export":       # answered after its timeout
+                continue
             self._pending -= 1
             if err:
                 log.error("frame plane worker error:\n%s", err)
             out[ticket] = (telems, tm)
         return out
 
+    def _measure(self, done: dict):
+        """Adds each task's decode ms in this gather to its cost."""
+        ms = {}
+        for ticket, (_, tm) in done.items():
+            fz = self._fz_of.get(ticket)
+            if fz in self.owner:
+                ms[fz] = ms.get(fz, 0.0) + (tm[3] - tm[2]) * 1e-6
+        for fz, m in ms.items():
+            c = self._cost.get(fz)
+            self._cost[fz] = m if c is None else c + COST_ALPHA * (m - c)
+
+    def _rebalance(self, timeout: float):
+        """Moves one task from the most loaded worker to the least loaded
+        one when that lowers the larger of the two loads by MOVE_MARGIN;
+        only while no ticket is outstanding."""
+        self._hold = {fz: n - 1 for fz, n in self._hold.items() if n > 1}
+        load, cost = self._loads()
+        src = max(range(self.workers), key=lambda i: (load[i], -i))
+        dst = min(range(self.workers), key=lambda i: (load[i], i))
+        best = None
+        for fz, w in self.owner.items():
+            if w == src and fz not in self._hold:
+                top = max(load[src] - cost[fz], load[dst] + cost[fz])
+                if best is None or top < best[0]:
+                    best = (top, fz)
+        if best is not None and best[0] < (1 - MOVE_MARGIN) * load[src]:
+            self._hand_over(best[1], dst, timeout)
+
+    def _hand_over(self, fz: int, dst: int, timeout: float = 60.0):
+        """Moves task ``fz`` and its decoder state to worker ``dst``: the
+        owner pickles the state out and forgets it, ``dst`` takes it in.
+        Call only while no ticket is outstanding."""
+        src = self.owner[fz]
+        if not self._procs[src].is_alive():
+            self._respawn_dead()         # its state is lost: nothing to move
+            return
+        self._inqs[src].put(("export", fz))
+        while True:
+            try:
+                msg = self._outq.get(timeout=timeout)
+            except queue_mod.Empty:
+                log.error("frame plane: worker %d did not hand over %d "
+                          "after %.0fs", src, fz, timeout)
+                self._respawn_dead()
+                return
+            if msg[0] == "export":
+                break
+            # else a ticket an earlier gather wrote off: discard it
+        _, _, blob, err = msg
+        self._hold[fz] = MOVE_HOLD
+        if err:
+            log.error("frame plane: task %d stays on worker %d, its state "
+                      "does not pickle:\n%s", fz, src, err)
+            return
+        self._inqs[dst].put(("import", fz, blob))
+        self.owner[fz] = dst
+        self.moves += 1
+        probe.count("pool_moves")
+        log.info("frame plane: task %.4f MHz moved from worker %d to %d",
+                 fz / 1e6, src, dst)
+
     def drop(self, fz: int):
         """Evict a frequency's decoder state (channel reaped/blocked)."""
         if self.workers == 0:
             self._decoders.pop(fz, None)
-        elif self._inqs:                 # pool not started: nothing held
-            self._inqs[self._route(fz)].put(("drop", fz))
+            return
+        w = self.owner.pop(fz, None)
+        if w is not None:                # no entry: no worker holds it
+            self._inqs[w].put(("drop", fz))
+        for d in (self._model, self._cost, self._hold):
+            d.pop(fz, None)
 
     def rekey(self, old_fz: int, new_fz: int):
         """Move a frequency's decoder state (drift retune): preserves
         accumulated decoder state (RS41 cal subframes, DFM serial
-        confirmation) as the task frequency follows a drifting sonde."""
+        confirmation) as the task frequency follows a drifting sonde.
+        The table entry moves and the owner re-keys the state in place,
+        wherever the new key lies."""
         if old_fz == new_fz:
             return
         if self.workers == 0:
             st = self._decoders.pop(old_fz, None)
             if st is not None:
                 self._decoders[new_fz] = st
-        elif self._inqs:
-            if self._route(old_fz) == self._route(new_fz):
-                self._inqs[self._route(old_fz)].put(
-                    ("rekey", old_fz, new_fz))
-            else:
-                # the new key routes to a different worker: decoder
-                # state cannot cross processes — drop it; stateless-by-
-                # design decoders re-lock on the next block
-                self._inqs[self._route(old_fz)].put(("drop", old_fz))
+            return
+        w = self.owner.pop(old_fz, None)
+        if w is None:                    # no entry: no worker holds it
+            return
+        other = self.owner.get(new_fz)
+        if other is not None and other != w:
+            # the new key's old state is overwritten, as inline
+            self._inqs[other].put(("drop", new_fz))
+        self.owner[new_fz] = w
+        self._inqs[w].put(("rekey", old_fz, new_fz))
+        for d in (self._model, self._cost, self._hold):
+            d.pop(new_fz, None)
+            if old_fz in d:
+                d[new_fz] = d.pop(old_fz)
 
     def close(self):
         for q in self._inqs:

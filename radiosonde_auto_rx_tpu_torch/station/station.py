@@ -1357,8 +1357,11 @@ class Station:
         ``(name, fz, snr_db, det, f_resid, f_demod)``."""
         results = self.frame_plane.gather()
         if self.frame_plane.workers > 0:
-            # decodes a worker: the pool's balance, for the operator
+            # decodes and tasks a worker and the tasks moved between
+            # workers: the pool's balance, for the operator
             self.stats["pool_decodes"] = list(self.frame_plane.decodes)
+            self.stats["pool_tasks"] = self.frame_plane.tasks()
+            self.stats["pool_moves"] = self.frame_plane.moves
         out = []
         for ticket in sorted(meta):
             name, fz, snr_db, det, f_resid, f_demod = meta[ticket]

@@ -40,7 +40,6 @@ SAME = [
     "exporters/rotator.py",
     "exporters/sondehub.py",
     "models/__init__.py",
-    "models/dfm.py",
     "models/dropsonde.py",
     "models/imet54.py",
     "models/lms6.py",
@@ -223,7 +222,9 @@ CHANGED = {
     # one log line when the workers start; each decode's timing rides
     # beside its result (the worker's index, pid, start and end on
     # ``time.time_ns()``), kept as a ``utils.probe`` span and counted a
-    # worker; the wait on the pool is a span
+    # worker; the wait on the pool is a span; a placement table by
+    # measured decode cost with an exact hand-over of decoder state, in
+    # place of routing by frequency hash (F9)
     "station/frame_plane.py": [
         ("            self._procs.append(p)\n",
          "            self._procs.append(p)\n"
@@ -238,7 +239,8 @@ CHANGED = {
          'def _worker_main(inq, outq, w=0):\n'
          '    """Worker loop: owns {freq -> (model_name, decoder)} state.  Each\n'
          "    result carries the decode's timing: (worker ``w``, pid, start, end\n"
-         '    on ``time.time_ns()``, model, frames)."""\n'),
+         '    on ``time.time_ns()``, model, frames).  ``export`` hands a task\'s\n'
+         '    state out pickled (and forgets it), ``import`` takes one in."""\n'),
         ('        _, ticket, fz, model_name, kwargs, bits, soft = msg\n',
          '        _, ticket, fz, model_name, kwargs, bits, soft = msg\n'
          '        t0 = time.time_ns()\n'),
@@ -253,15 +255,27 @@ CHANGED = {
         ('    (identical semantics, zero processes)."""\n',
          '    (identical semantics, zero processes).\n'
          '\n'
+         '    ``owner`` is the placement table, ``{fz: worker}``: a task is placed\n'
+         '    on the least-loaded worker at its first decode, and its state stays\n'
+         '    there until a hand-over at the end of a gather moves it (at most one\n'
+         '    task a gather, counted in ``moves`` and as ``pool_moves``).\n'
+         '\n'
          "    Each decode's timing (worker, pid, start and end ns, model, frames;\n"
          '    worker None inline) rides beside its result: gather() counts it in\n'
-         "    ``decodes`` (a worker's decodes) and keeps it as a\n"
-         '    ``frame_plane.decode`` span while ``utils.probe`` records."""\n'),
+         "    ``decodes`` (a worker's decodes), adds it to its task's cost, and\n"
+         '    keeps it as a ``frame_plane.decode`` span while ``utils.probe``\n'
+         '    records."""\n'),
         ('        self._next_ticket = 0\n',
          '        self._next_ticket = 0\n'
          '        self._inline_results = {}\n'
          '        self._ctx = {}               # ticket -> probe.context() at decode\n'
-         '        self.decodes = [0] * max(self.workers, 0)\n'),
+         '        self.decodes = [0] * max(self.workers, 0)\n'
+         '        self.owner = {}              # the placement table: fz -> worker\n'
+         '        self._model = {}             # fz -> model name of its last decode\n'
+         '        self._cost = {}              # fz -> decode ms a gather (weighted)\n'
+         '        self._hold = {}              # fz -> gathers before it may move\n'
+         '        self._fz_of = {}             # outstanding ticket -> fz\n'
+         '        self.moves = 0\n'),
         ('        for _ in range(self.workers):\n'
          '            q = ctx.Queue()\n'
          '            p = ctx.Process(target=_worker_main, args=(q, self._outq),\n',
@@ -294,6 +308,10 @@ CHANGED = {
          '        else:\n'
          '            with probe.span("frame_plane.gather", tickets=self._pending):\n'
          '                done = self._gather_pool(timeout)\n'
+         '                self._measure(done)\n'
+         '                if all(t in done for t in self._fz_of):\n'
+         '                    self._rebalance(timeout)     # the pool is idle\n'
+         '            self._fz_of = {}\n'
          '        for ticket, (_, tm) in done.items():\n'
          '            if tm[0] is not None:\n'
          '                self.decodes[tm[0]] += 1\n'
@@ -311,6 +329,268 @@ CHANGED = {
          '                ticket, telems, err, tm = self._outq.get(timeout=timeout)\n'),
         ('            out[ticket] = telems\n',
          '            out[ticket] = (telems, tm)\n'),
+        ('assembly, DFM serial confirmation, RS92 cal collection) for the\n'
+         'frequencies routed to it.  Routing is by stable frequency hash so a\n'
+         "sonde's decoder state always lives in the same worker.  The main\n"
+         'process keeps the light parts: telemetry enrichment, filtering and\n'
+         'exporter fan-out (station.py `_decode_frames` tail).\n',
+         'assembly, DFM serial confirmation, RS92 cal collection) of the tasks\n'
+         'placed on it.  A placement table in the main process, ``{fz: worker}``,\n'
+         "puts a task on the least-loaded worker at its first decode: a worker's\n"
+         "load is the sum of its tasks' costs, each an exponentially weighted mean\n"
+         "of the task's measured decode ms a gather (a task not yet measured costs\n"
+         "the mean of its model's measured tasks, else of all, else 1).  A task's\n"
+         'decoder state lives in its worker, and ``rekey`` and ``drop`` go there.\n'
+         'It changes worker only by an exact hand-over: once a gather has resolved\n'
+         'every ticket (the pool idle), one task a gather moves from the most\n'
+         'loaded worker to the least loaded one when that lowers the larger of the\n'
+         'two loads by a clear margin — the owner pickles the decoder out and\n'
+         'forgets it, the new worker takes it in.  The main process keeps the\n'
+         'light parts: telemetry enrichment, filtering and exporter fan-out\n'
+         '(station.py `_decode_frames` tail).\n'),
+        ('import os\n'
+         'import queue as queue_mod\n',
+         'import os\n'
+         'import pickle\n'
+         'import queue as queue_mod\n'),
+        ('log = logging.getLogger("frame_plane")\n',
+         'log = logging.getLogger("frame_plane")\n'
+         '\n'
+         "COST_ALPHA = 0.25    # a task's cost: its decode ms a gather, weighted over\n"
+         "                     # ~4 gathers (an RS41's cut frame cycles in 4 blocks)\n"
+         'MOVE_MARGIN = 0.1    # a move lowers the larger of the two loads by this share\n'
+         'MOVE_HOLD = 4        # gathers a moved task stays put\n'),
+        ('                decoders[msg[2]] = st\n'
+         '            continue\n',
+         '                decoders[msg[2]] = st\n'
+         '            continue\n'
+         '        if op == "export":\n'
+         '            st = decoders.pop(msg[1], None)\n'
+         '            try:\n'
+         '                blob, err = pickle.dumps(st), None\n'
+         '            except Exception:\n'
+         '                if st is not None:\n'
+         '                    decoders[msg[1]] = st    # not handed over: kept here\n'
+         '                blob, err = None, traceback.format_exc()\n'
+         '            outq.put(("export", msg[1], blob, err))\n'
+         '            continue\n'
+         '        if op == "import":\n'
+         '            st = pickle.loads(msg[2])\n'
+         '            if st is not None:\n'
+         '                decoders[msg[1]] = st\n'
+         '            continue\n'),
+        ('    """Affinity-routed decoder pool.\n',
+         '    """Decoder pool with a placement table.\n'),
+        ('    def _route(self, fz: int) -> int:\n'
+         '        return int(fz) % self.workers\n'
+         '\n',
+         '    def _loads(self):\n'
+         '        """(load a worker, cost a task) from the placement table."""\n'
+         '        by_model, measured = {}, list(self._cost.values())\n'
+         '        for fz, c in self._cost.items():\n'
+         '            by_model.setdefault(self._model[fz], []).append(c)\n'
+         '        mean = {m: sum(v) / len(v) for m, v in by_model.items()}\n'
+         '        dflt = sum(measured) / len(measured) if measured else 1.0\n'
+         '        cost = {fz: self._cost.get(fz, mean.get(self._model.get(fz), dflt))\n'
+         '                for fz in self.owner}\n'
+         '        load = [0.0] * self.workers\n'
+         '        for fz, w in self.owner.items():\n'
+         '            load[w] += cost[fz]\n'
+         '        return load, cost\n'
+         '\n'
+         '    def tasks(self) -> list:\n'
+         '        """Tasks a worker in the placement table."""\n'
+         '        n = [0] * self.workers\n'
+         '        for w in self.owner.values():\n'
+         '            n[w] += 1\n'
+         '        return n\n'
+         '\n'),
+        ('        w = self._route(fz)\n',
+         '        w = self.owner.get(fz)\n'
+         '        if w is None:\n'
+         '            load, _ = self._loads()\n'
+         '            w = self.owner[fz] = min(range(self.workers),\n'
+         '                                     key=lambda i: (load[i], i))\n'
+         '        self._model[fz] = model_name\n'
+         '        self._fz_of[ticket] = fz\n'),
+        ('            self._pending -= 1\n'
+         '            if err:\n',
+         '            if ticket == "export":       # answered after its timeout\n'
+         '                continue\n'
+         '            self._pending -= 1\n'
+         '            if err:\n'),
+        ('    def drop(self, fz: int):\n'
+         '        """Evict a frequency\'s decoder state (channel reaped/blocked)."""\n'
+         '        if self.workers == 0:\n'
+         '            self._decoders.pop(fz, None)\n'
+         '        elif self._inqs:                 # pool not started: nothing held\n'
+         '            self._inqs[self._route(fz)].put(("drop", fz))\n'
+         '\n'
+         '    def rekey(self, old_fz: int, new_fz: int):\n'
+         '        """Move a frequency\'s decoder state (drift retune): preserves\n'
+         '        accumulated decoder state (RS41 cal subframes, DFM serial\n'
+         '        confirmation) as the task frequency follows a drifting sonde."""\n'
+         '        if old_fz == new_fz:\n'
+         '            return\n'
+         '        if self.workers == 0:\n'
+         '            st = self._decoders.pop(old_fz, None)\n'
+         '            if st is not None:\n'
+         '                self._decoders[new_fz] = st\n'
+         '        elif self._inqs:\n'
+         '            if self._route(old_fz) == self._route(new_fz):\n'
+         '                self._inqs[self._route(old_fz)].put(\n'
+         '                    ("rekey", old_fz, new_fz))\n'
+         '            else:\n'
+         '                # the new key routes to a different worker: decoder\n'
+         '                # state cannot cross processes — drop it; stateless-by-\n'
+         '                # design decoders re-lock on the next block\n'
+         '                self._inqs[self._route(old_fz)].put(("drop", old_fz))\n'
+         '\n',
+         '    def _measure(self, done: dict):\n'
+         '        """Adds each task\'s decode ms in this gather to its cost."""\n'
+         '        ms = {}\n'
+         '        for ticket, (_, tm) in done.items():\n'
+         '            fz = self._fz_of.get(ticket)\n'
+         '            if fz in self.owner:\n'
+         '                ms[fz] = ms.get(fz, 0.0) + (tm[3] - tm[2]) * 1e-6\n'
+         '        for fz, m in ms.items():\n'
+         '            c = self._cost.get(fz)\n'
+         '            self._cost[fz] = m if c is None else c + COST_ALPHA * (m - c)\n'
+         '\n'
+         '    def _rebalance(self, timeout: float):\n'
+         '        """Moves one task from the most loaded worker to the least loaded\n'
+         '        one when that lowers the larger of the two loads by MOVE_MARGIN;\n'
+         '        only while no ticket is outstanding."""\n'
+         '        self._hold = {fz: n - 1 for fz, n in self._hold.items() if n > 1}\n'
+         '        load, cost = self._loads()\n'
+         '        src = max(range(self.workers), key=lambda i: (load[i], -i))\n'
+         '        dst = min(range(self.workers), key=lambda i: (load[i], i))\n'
+         '        best = None\n'
+         '        for fz, w in self.owner.items():\n'
+         '            if w == src and fz not in self._hold:\n'
+         '                top = max(load[src] - cost[fz], load[dst] + cost[fz])\n'
+         '                if best is None or top < best[0]:\n'
+         '                    best = (top, fz)\n'
+         '        if best is not None and best[0] < (1 - MOVE_MARGIN) * load[src]:\n'
+         '            self._hand_over(best[1], dst, timeout)\n'
+         '\n'
+         '    def _hand_over(self, fz: int, dst: int, timeout: float = 60.0):\n'
+         '        """Moves task ``fz`` and its decoder state to worker ``dst``: the\n'
+         '        owner pickles the state out and forgets it, ``dst`` takes it in.\n'
+         '        Call only while no ticket is outstanding."""\n'
+         '        src = self.owner[fz]\n'
+         '        if not self._procs[src].is_alive():\n'
+         '            self._respawn_dead()         # its state is lost: nothing to move\n'
+         '            return\n'
+         '        self._inqs[src].put(("export", fz))\n'
+         '        while True:\n'
+         '            try:\n'
+         '                msg = self._outq.get(timeout=timeout)\n'
+         '            except queue_mod.Empty:\n'
+         '                log.error("frame plane: worker %d did not hand over %d "\n'
+         '                          "after %.0fs", src, fz, timeout)\n'
+         '                self._respawn_dead()\n'
+         '                return\n'
+         '            if msg[0] == "export":\n'
+         '                break\n'
+         '            # else a ticket an earlier gather wrote off: discard it\n'
+         '        _, _, blob, err = msg\n'
+         '        self._hold[fz] = MOVE_HOLD\n'
+         '        if err:\n'
+         '            log.error("frame plane: task %d stays on worker %d, its state "\n'
+         '                      "does not pickle:\\n%s", fz, src, err)\n'
+         '            return\n'
+         '        self._inqs[dst].put(("import", fz, blob))\n'
+         '        self.owner[fz] = dst\n'
+         '        self.moves += 1\n'
+         '        probe.count("pool_moves")\n'
+         '        log.info("frame plane: task %.4f MHz moved from worker %d to %d",\n'
+         '                 fz / 1e6, src, dst)\n'
+         '\n'
+         '    def drop(self, fz: int):\n'
+         '        """Evict a frequency\'s decoder state (channel reaped/blocked)."""\n'
+         '        if self.workers == 0:\n'
+         '            self._decoders.pop(fz, None)\n'
+         '            return\n'
+         '        w = self.owner.pop(fz, None)\n'
+         '        if w is not None:                # no entry: no worker holds it\n'
+         '            self._inqs[w].put(("drop", fz))\n'
+         '        for d in (self._model, self._cost, self._hold):\n'
+         '            d.pop(fz, None)\n'
+         '\n'
+         '    def rekey(self, old_fz: int, new_fz: int):\n'
+         '        """Move a frequency\'s decoder state (drift retune): preserves\n'
+         '        accumulated decoder state (RS41 cal subframes, DFM serial\n'
+         '        confirmation) as the task frequency follows a drifting sonde.\n'
+         '        The table entry moves and the owner re-keys the state in place,\n'
+         '        wherever the new key lies."""\n'
+         '        if old_fz == new_fz:\n'
+         '            return\n'
+         '        if self.workers == 0:\n'
+         '            st = self._decoders.pop(old_fz, None)\n'
+         '            if st is not None:\n'
+         '                self._decoders[new_fz] = st\n'
+         '            return\n'
+         '        w = self.owner.pop(old_fz, None)\n'
+         '        if w is None:                    # no entry: no worker holds it\n'
+         '            return\n'
+         '        other = self.owner.get(new_fz)\n'
+         '        if other is not None and other != w:\n'
+         "            # the new key's old state is overwritten, as inline\n"
+         '            self._inqs[other].put(("drop", new_fz))\n'
+         '        self.owner[new_fz] = w\n'
+         '        self._inqs[w].put(("rekey", old_fz, new_fz))\n'
+         '        for d in (self._model, self._cost, self._hold):\n'
+         '            d.pop(new_fz, None)\n'
+         '            if old_fz in d:\n'
+         '                d[new_fz] = d.pop(old_fz)\n'
+         '\n'),
+    ],
+    # where two DFM frame candidates overlap, the one more header hits
+    # support wins (a header-like pattern inside a frame shadowed every
+    # true frame after it: F22)
+    "models/dfm.py": [
+        ('            starts = find_frame_starts(raw_bits, hdr, max_errors=2)\n'
+         '            cands = []\n'
+         '            for s in starts:\n'
+         '                for k in range(self.NFRMS):\n'
+         '                    p = int(s) + k * stride\n'
+         '                    if p + 2 * (FRAME_BITS - 16) > len(raw_bits):\n'
+         '                        break\n'
+         '                    cands.append(p)\n'
+         '            cands.sort()\n'
+         '            done = []\n'
+         '            for p in cands:\n'
+         '                # a continuation frame may land a bit or two off another\n'
+         "                # header's hit; never decode the same frame twice\n"
+         '                if done and p - done[-1] < stride // 2:\n'
+         '                    continue\n'
+         '                done.append(p)\n',
+         '            starts = [int(s) for s in\n'
+         '                      find_frame_starts(raw_bits, hdr, max_errors=2)]\n'
+         '            cands = set()\n'
+         '            for s in starts:\n'
+         '                for k in range(self.NFRMS):\n'
+         '                    p = s + k * stride\n'
+         '                    if p + 2 * (FRAME_BITS - 16) > len(raw_bits):\n'
+         '                        break\n'
+         '                    cands.add(p)\n'
+         '\n'
+         '            def support(p):\n'
+         "                # header hits on p's frame lattice: back-to-back frames\n"
+         '                # give one a frame, data that looks like the header one\n'
+         '                return sum(min((p - h) % stride, (h - p) % stride) <= 2\n'
+         '                           for h in starts)\n'
+         '            # a continuation frame may land a bit or two off another\n'
+         "            # header's hit; never decode the same frame twice, and where\n"
+         '            # two candidates overlap keep the better supported one, so\n'
+         '            # that a header-like pattern inside a frame cannot shadow the\n'
+         '            # true frames after it (the earlier one on a tie)\n'
+         '            done = []\n'
+         '            for p in sorted(cands, key=lambda p: (-support(p), p)):\n'
+         '                if all(abs(p - q) >= stride // 2 for q in done):\n'
+         '                    done.append(p)\n'
+         '            for p in sorted(done):\n'),
     ],
     # ``apply_platform_env`` (JAX's backend) has no counterpart
     "utils/process.py": [
