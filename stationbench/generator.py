@@ -1,20 +1,32 @@
-"""The traffic generator: one continuous wideband capture, block by block.
+"""The traffic generator: the station's wideband captures, cycle by cycle.
 
-A traffic file (``traffic/<name>.json``) lists the sondes on air, of the
-types in ``frames.TYPES``, each with its serial, channel, offset, level
-and launch site.  ``Traffic`` keeps every sonde's symbol stream (a
-seeded lead-in of random bits, then its frames back to back) and the
-truth of each frame: its id, GPS time, position and the symbols it
-spans (an LMS6-1680 sends one frame a second, padded as its protocol
-pads, ``frames.SLOT_FILL``).  The frames of the blocks a run is
-expected to need are encoded at set-up; past them a stream grows as the
-modulator asks for more, so that a station faster than the traffic's
-``max_realtime_x`` still gets fresh frames.  ``Generator`` modulates block ``k`` on the device, from
-the seed, with the phase-continuous Gaussian FSK of ``modulate`` carried
-across blocks, adds complex noise of 0.002 RMS a component and hands the
-station the cs16 planes ``[2, T]`` (int16) on the host, as an SDR source
-does.  A prefetch thread on a CUDA stream of its own stays two blocks
-ahead.
+A configuration has one source (an SDR: one capture centred at
+``center_mhz``) or several (``"sources": [{"center_mhz": ...}, ...]``,
+each a capture of ``capture_rate`` at its own centre, in the order the
+station reads them).  All sources share one sample clock, so block ``k``
+of every source spans the same samples; cycle ``k`` is block ``k`` of
+each source.  A traffic file (``traffic/<name>.json``) lists the sondes
+on air, of the types in ``frames.TYPES``, each with its serial,
+frequency (``channel`` and ``offset_hz`` from the first source's centre,
+or an absolute ``freq_mhz``), level and launch site.  ``Traffic`` keeps
+every sonde's symbol stream (a seeded lead-in of random bits, then its
+frames back to back) and the truth of each frame: its id, GPS time,
+position and the symbols it spans (an LMS6-1680 sends one frame a
+second, padded as its protocol pads, ``frames.SLOT_FILL``).  The frames
+of the blocks a run is expected to need are encoded at set-up; past them
+a stream grows as the modulator asks for more, so that a station faster
+than the traffic's ``max_realtime_x`` still gets fresh frames.
+
+``Generator`` modulates cycle ``k`` on the device, from the seed: every
+source's capture carries every sonde within half the capture rate of its
+centre (the station's own span, ``Station.in_capture``) at that
+capture's offset, with the same symbols and level, through a
+phase-continuous Gaussian FSK of its own carried across blocks (the FSK
+of ``modulate``); each source adds its own complex noise of 0.002 RMS a
+component.  The station gets each source's cs16 planes ``[2, T]``
+(int16) on the host, as an SDR source hands them over.  A prefetch
+thread on a CUDA stream of its own makes a cycle's blocks together and
+stays two cycles ahead.
 
 Every sonde keeps its serial; its frame counter and GPS time advance
 frame by frame through the run, and its position follows an ascent from
@@ -110,9 +122,19 @@ class Sonde:
             self.n = end
 
 
+def source_centers(cfg: dict) -> list:
+    """The centre (Hz) of each source of a configuration, in order: its
+    ``sources``, or one source at ``center_mhz``."""
+    srcs = cfg.get("sources") or [{"center_mhz": cfg["center_mhz"]}]
+    return [float(src["center_mhz"]) * 1e6 for src in srcs]
+
+
 class Traffic:
-    """The sondes of a traffic file on a configuration's capture, their
-    frames encoded for the first ``n_blocks`` blocks."""
+    """The sondes of a traffic file on a configuration's captures, their
+    frames encoded for the first ``n_blocks`` blocks.  ``centers`` holds
+    each source's centre (Hz); a sonde's ``f_off`` is its offset from the
+    first source's centre, ``f_hz`` its absolute frequency and
+    ``sources`` the captures that carry it."""
 
     def __init__(self, spec: dict, cfg: dict, seed: int, n_blocks: int,
                  t0_gps: float | None = None):
@@ -120,19 +142,34 @@ class Traffic:
         self.fs = int(cfg["capture_rate"])
         self.block = int(round(float(cfg["block_seconds"]) * self.fs))
         self.t0_gps = gps_start() if t0_gps is None else t0_gps
+        self.centers = source_centers(cfg)
         n_chan = int(cfg.get("num_channels_wide") or cfg["num_channels"]) \
-            if float(cfg["center_mhz"]) > 1000 else int(cfg["num_channels"])
+            if self.centers[0] > 1e9 else int(cfg["num_channels"])
         rng = np.random.default_rng([int(seed), 1])
         # the GPS constellation an RS92's frames are solved against: its
         # week and epoch are the run's, as a station's downloaded one
         week, sow = frames.gps_week_tow(self.t0_gps)
         self.ephemeris = frames.rs92_test_ephemeris(week, float(sow))
         self.sondes = []
+        c0 = self.centers[0]
         for em in spec["emitters"]:
-            f_off = channel_offset(int(em["channel"]), n_chan, self.fs) + \
-                float(em.get("offset_hz", 0.0))
+            if "freq_mhz" in em:
+                f_off = float(em["freq_mhz"]) * 1e6 - c0
+            else:
+                f_off = channel_offset(int(em["channel"]), n_chan,
+                                       self.fs) + \
+                    float(em.get("offset_hz", 0.0))
             kw = {"ephs": self.ephemeris} if em["type"] == "RS92NGP" else {}
             s = Sonde(em, f_off, self.t0_gps, rng, **kw)
+            s.f_hz = c0 + f_off
+            s.sources = [i for i, c in enumerate(self.centers)
+                         if abs(s.f_hz - c) <= self.fs / 2]
+            if not s.sources:
+                raise ValueError(
+                    f"{s.type} {s.serial} at {s.f_hz / 1e6:.6f} MHz lies in"
+                    f" no source's capture ({self.fs / 1e6:g} MS/s at "
+                    f"{', '.join(f'{c / 1e6:.6f}' for c in self.centers)}"
+                    f" MHz)")
             s.ensure(-(-(n_blocks * self.block + self.fs) * s.rs // self.fs))
             self.sondes.append(s)
         self.seed = int(seed)
@@ -160,9 +197,12 @@ class Modulator:
     Gaussian of sigma sqrt(ln 2) / (2 pi BT) symbols, plus the offset.
     The symbols of each block go to the device as bytes."""
 
-    def __init__(self, em, fs: int, device):
+    def __init__(self, em, fs: int, device, f_off: float | None = None):
         import torch
         self.em, self.fs, self.device = em, fs, device
+        # the offset from this capture's centre (None: the sonde's own
+        # ``f_off``, from the first source's)
+        self.f_off = em.f_off if f_off is None else f_off
         self.phase = 0.0
         sigma = math.sqrt(math.log(2.0)) / (2 * math.pi * em.bt) * \
             (fs / em.rs)
@@ -196,7 +236,7 @@ class Modulator:
         """The complex baseband of samples [n0, n0+n) (complex128)."""
         import torch
         f = self.freq(n0, n)
-        step = 2 * math.pi * self.em.f_off / self.fs
+        step = 2 * math.pi * self.f_off / self.fs
         ph = self.phase + torch.cumsum(
             (2 * math.pi / self.fs) * f, 0) + step * torch.arange(
                 1, n + 1, device=self.device, dtype=torch.float64)
@@ -204,46 +244,54 @@ class Modulator:
         return torch.polar(torch.full_like(ph, self.em.level), ph)
 
 
-def block_seed(seed: int, k: int) -> int:
-    """The noise generator's seed of block ``k``."""
-    return int(np.random.SeedSequence([int(seed), 2, k]).generate_state(
+def block_seed(seed: int, k: int, source: int = 0) -> int:
+    """The noise generator's seed of block ``k`` of ``source``."""
+    key = [int(seed), 2, k] + ([source] if source else [])
+    return int(np.random.SeedSequence(key).generate_state(
         1, np.uint64)[0] & 0x7FFFFFFFFFFFFFFF)
 
 
 class Generator:
-    """Blocks of the traffic as cs16 host planes, in order."""
+    """Cycles of the traffic as cs16 planes, in order."""
 
     def __init__(self, traffic: Traffic, device):
         self.traffic = traffic
         self.device = device
-        self.mods = [Modulator(e, traffic.fs, device)
-                     for e in traffic.sondes]
+        c0 = traffic.centers[0]
+        # a modulator for each sonde in each capture that carries it
+        self.mods = [[Modulator(e, traffic.fs, device, e.f_off + (c0 - c))
+                      for e in traffic.sondes if i in e.sources]
+                     for i, c in enumerate(traffic.centers)]
         self.k = 0
 
     def make(self, k: int):
-        """Block ``k`` as int16 [2, T] on the device (blocks in order)."""
+        """Cycle ``k`` as int16 [sources, 2, T] on the device (cycles in
+        order)."""
         import torch
         if k != self.k:
-            raise ValueError("blocks are made in order")
+            raise ValueError("cycles are made in order")
         self.k += 1
-        T, fs = self.traffic.block, self.traffic.fs
+        T = self.traffic.block
         g = torch.Generator(device=self.device)
-        g.manual_seed(block_seed(self.traffic.seed, k))
-        x = torch.randn((2, T), generator=g, device=self.device,
-                        dtype=torch.float64) * NOISE_RMS
-        for m in self.mods:
-            z = m.block(k * T, T)
-            x[0] += z.real
-            x[1] += z.imag
-        return torch.clamp(torch.round(x * 32768.0), -32768, 32767) \
-            .to(torch.int16)
+        out = []
+        for i, mods in enumerate(self.mods):
+            g.manual_seed(block_seed(self.traffic.seed, k, i))
+            x = torch.randn((2, T), generator=g, device=self.device,
+                            dtype=torch.float64) * NOISE_RMS
+            for m in mods:
+                z = m.block(k * T, T)
+                x[0] += z.real
+                x[1] += z.imag
+            out.append(torch.clamp(torch.round(x * 32768.0), -32768, 32767)
+                       .to(torch.int16))
+        return torch.stack(out)
 
 
 class Prefetch:
     """Runs a ``Generator`` in a thread on its own CUDA stream (none on
-    the CPU), ``depth`` blocks ahead; ``get()`` returns the next block as
-    a host NumPy array.  Its device work lies on its own stream, which the
-    trace's reading leaves out."""
+    the CPU), ``depth`` cycles ahead; ``get()`` returns the next cycle as
+    a host NumPy array [sources, 2, T].  Its device work lies on its own
+    stream, which the trace's reading leaves out."""
 
     def __init__(self, gen: Generator, depth: int = 2):
         import torch

@@ -1,4 +1,4 @@
-"""Mean host ms a block in ``Station.captures_collect``: the scan and
+"""Mean host ms a cycle in ``Station.captures_collect``: the scan and
 task policy, the speculation check, confirm, frame decode through the
 frame-plane pool (the benchmark's span around the call)."""
 

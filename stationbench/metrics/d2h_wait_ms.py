@@ -1,4 +1,4 @@
-"""Mean host ms a block in the station's copies back from the card
+"""Mean host ms a cycle in the station's copies back from the card
 (``station.d2h``: each ``.cpu()`` of ``station/station.py`` and the
 sequential route's PSD), where the host waits for the device work that
 makes them."""

@@ -1,7 +1,7 @@
-"""Mean ms a block of frame decode in the busiest decoder: the
+"""Mean ms a cycle of frame decode in the busiest decoder: the
 ``frame_plane.decode`` spans (stamped in each pool worker, or in the
 main process inline) summed by worker, the largest sum over the window's
-blocks."""
+cycles."""
 
 from stationbench import spans
 

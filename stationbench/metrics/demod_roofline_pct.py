@@ -1,9 +1,10 @@
 """The demod kernel's share of its byte roofline: for every task of every
-block, the least bytes of its demodulation (the task's channel planes at
-the demod's input rate, two float32 planes a sample, read once; a float32
-soft decision and a byte of bit a symbol written once, as
-``chip_smoke.scan_bound`` counts them), over the device time of the
-kernels listed in ``demod_roofline_pct.json``."""
+cycle (once, also where two captures carry its sonde), the least bytes
+of its demodulation (the task's channel planes at the demod's input
+rate, two float32 planes a sample, read once; a float32 soft decision
+and a byte of bit a symbol written once, as ``chip_smoke.scan_bound``
+counts them), over the device time of the kernels listed in
+``demod_roofline_pct.json``."""
 
 from stationbench.metrics import data, roofline_pct
 

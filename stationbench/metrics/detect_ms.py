@@ -1,6 +1,6 @@
-"""Mean ms a block in the detector on candidate rows (``station.detect``:
+"""Mean ms a cycle in the detector on candidate rows (``station.detect``:
 the sequential route's ``detector.detect``, the fused route's confirm
-and its decision), over the window's blocks."""
+and its decision), over the window's cycles."""
 
 from stationbench import spans
 

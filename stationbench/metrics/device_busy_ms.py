@@ -1,6 +1,6 @@
-"""Mean ms a block in which the station's device work ran: the union of
+"""Mean ms a cycle in which the station's device work ran: the union of
 its kernels, copies and memsets in the traced window (the generator's
-stream left out), over the window's blocks."""
+stream left out), over the window's cycles."""
 
 
 def read(run, blocks, trace):

@@ -1,5 +1,5 @@
-"""Mean host ms a block in ``Station.captures_dispatch``: the speculative
-plan, the block's copy to the device and the steady step's launches (the
+"""Mean host ms a cycle in ``Station.captures_dispatch``: the speculative
+plan, the cycle's copies to the device and the steady step's launches (the
 benchmark's span around the call)."""
 
 

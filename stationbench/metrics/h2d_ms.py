@@ -1,6 +1,6 @@
-"""Mean ms a block of the block's copy to the card
+"""Mean ms a cycle of its blocks' copies to the card
 (``station.h2d``, the program's span around ``Station._wide_planes``'s
-copy), over the window's blocks."""
+copy), over the window's cycles."""
 
 from stationbench import spans
 

@@ -1,4 +1,4 @@
-"""Mean host ms a block of the collect's scan and task policy: the self
+"""Mean host ms a cycle of the collect's scan and task policy: the self
 time of the program's ``station.policy`` spans (the PSD scan's peaks,
 forced tasks, candidate ranking, the spacing rule, routing and the
 speculation check; on the sequential route the scan's peaks, row

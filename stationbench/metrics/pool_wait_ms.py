@@ -1,4 +1,4 @@
-"""Mean host ms a block the main process waits on the frame-plane pool
+"""Mean host ms a cycle the main process waits on the frame-plane pool
 (``frame_plane.gather``, around ``FramePlane.gather``'s wait)."""
 
 from stationbench import spans

@@ -172,12 +172,12 @@ def judge_telemetry(traffic, telem):
 
 
 def wrong_tasks(traffic, tasks) -> list:
-    """The tasks (type, Hz from the capture center) that are no sonde's:
-    a type that no sonde near enough has."""
+    """The tasks (type, absolute Hz) that are no sonde's: a type that no
+    sonde near enough has."""
     out = []
     for typ, f in tasks:
         if not any(typ in TASK_TYPES.get(s.type, (s.type,)) and
-                   abs(f - s.f_off) < max(TASK_TOL_HZ, s.spacing)
+                   abs(f - s.f_hz) < max(TASK_TOL_HZ, s.spacing)
                    for s in traffic.sondes):
             out.append((typ, f))
     return out

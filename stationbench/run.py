@@ -5,18 +5,24 @@
 
 from the root of a checkout.  The cell (``BENCHMARK.json``'s
 ``workloads``) names a configuration
-(``stationbench/configs/<name>.json``: the station's settings and the
-capture) and a traffic mix
+(``stationbench/configs/<name>.json``: the station's settings and its
+sources) and a traffic mix
 (``stationbench/traffic/<name>.json``: the sondes on air, the warm-up,
-the limits of the checks).  The run builds the station as a user's is
-built (the default frame-plane pool, the fused steady step, the filters,
-no exporters), feeds it the generator's cs16 blocks through the served
-path, ``Station.captures_dispatch`` of block k+1 then
-``Station.captures_collect`` of block k, as ``station.main.run_station``
-does, in a closed loop (the next block is handed over when the loop asks
-for it).  Warm-up blocks, in which the station finds its sondes itself,
-are set-up; then the window runs at least ``--seconds`` and at least
-CHAN_DRAW blocks, to the return of the collect that passes both.
+the limits of the checks).  A source is one SDR: a capture of
+``capture_rate`` at its own centre, ``center_mhz`` for a configuration
+of one, each entry of ``sources`` for one of several (as many as
+``station.sdr_quantity``; each source's part of the band plan is one
+segment, so no source hops).  A cycle is one block from each source, in
+source order, on one sample clock.  The run builds the station as a
+user's is built (the default frame-plane pool, the fused steady step,
+the filters, no exporters), feeds it the generator's cs16 blocks through
+the served path, ``Station.captures_dispatch(blocks, centers)`` of cycle
+k+1 then ``Station.captures_collect`` of cycle k, as
+``station.main.run_station`` does on one card (one block a source a
+cycle), in a closed loop (the next cycle is handed over when the loop
+asks for it).  Warm-up cycles, in which the station finds its sondes
+itself, are set-up; then the window runs at least ``--seconds`` and at
+least CHAN_DRAW cycles, to the return of the collect that passes both.
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics;
@@ -41,9 +47,9 @@ from pathlib import Path
 FORBIDDEN = ("jax", "jaxlib", "flax", "radiosonde_auto_rx_tpu")
 EXIT_NO_DEVICE = 2
 EXIT_FORBIDDEN = 3
-CHAN_SAMPLES = 4          # window blocks whose channel rows are judged
-CHAN_DRAW = 16            # ... drawn from the window's first blocks
-PSD_SAMPLES = 2           # scanned window blocks whose PSD is judged
+CHAN_SAMPLES = 4          # window cycles whose channel rows are judged
+CHAN_DRAW = 16            # ... drawn from the window's first cycles
+PSD_SAMPLES = 2           # scanned window cycles whose PSD is judged
 
 
 def process_start() -> float:
@@ -178,7 +184,10 @@ class Cell:
 class Tap:
     """Keeps what the sequential route's channelizer and PSD return while
     ``on``: the station module's own ``channelize`` and
-    ``power_spectrum``, wrapped (their arguments and results untouched)."""
+    ``power_spectrum``, wrapped (their arguments and results untouched).
+    The route takes a cycle's captures in order, each its PSD (when it
+    scans) then its channels: ``ch`` holds a row bank a capture, ``psd``
+    (capture, PSD row) pairs."""
 
     def __init__(self, module):
         self.module, self.on = module, False
@@ -195,12 +204,33 @@ class Tap:
             out = self._orig[1](*a, **k)
             self.calls += 1
             if self.on:
-                self.psd.append(out[1])
+                self.psd.append((len(self.ch), out[1]))
             return out
         module.channelize, module.power_spectrum = channelize, power_spectrum
 
     def close(self):
         self.module.channelize, self.module.power_spectrum = self._orig
+
+
+def check_sources(cfg: dict, centers: list):
+    """Refuses a configuration of several sources that the station's
+    command line would not run as written: ``station.sdr_quantity`` other
+    than the number of sources, or a source whose part of the band plan
+    (``partition_segments`` of ``BandPlan``) is more than one segment,
+    which would hop."""
+    from radiosonde_auto_rx_tpu_torch.station.bandplan import (
+        BandPlan, partition_segments)
+    st = cfg["station"]
+    n_sdr = int(st.get("sdr_quantity", 1))
+    if n_sdr != len(centers):
+        raise SystemExit(f"station.sdr_quantity is {n_sdr} for "
+                         f"{len(centers)} sources")
+    parts = partition_segments(BandPlan(st), len(centers))
+    if any(len(part) != 1 for part in parts):
+        raise SystemExit("a source would hop over the band plan's segments: "
+                         + "; ".join(",".join(f"{g.center_hz / 1e6:.3f}"
+                                              for g in part)
+                                     for part in parts) + " MHz")
 
 
 def percentile(values, q: float) -> float:
@@ -221,13 +251,16 @@ class Run:
                  device, t_start: float):
         import numpy as np
         import torch
-        from stationbench.generator import Generator, Prefetch, Traffic
+        from stationbench.generator import (Generator, Prefetch, Traffic,
+                                            source_centers)
         self.cell, self.seed, self.seconds = cell, seed, seconds
         self.trace, self.device, self.t_start = trace, device, t_start
         self.cuda = torch.device(device).type == "cuda"
         cfg, tr = cell.config, cell.traffic
         self.block_s = float(cfg["block_seconds"])
-        self.center = float(cfg["center_mhz"]) * 1e6
+        self.centers = source_centers(cfg)
+        if "sources" in cfg:
+            check_sources(cfg, self.centers)
         self.warm = int(tr["warmup_blocks"])
         self.n_blocks = self.warm + int(math.ceil(
             seconds * float(tr["max_realtime_x"]) / self.block_s)) + 2
@@ -255,14 +288,16 @@ class Run:
                 setattr(eph, k, v)
             ephs.append(eph)
         conf["rs92_ephemeris"] = ephs
-        return Station(conf, center_freq_hz=self.center, device=self.device)
+        return Station(conf, center_freq_hz=self.centers[0],
+                       device=self.device)
 
-    def next_block(self):
+    def next_cycle(self):
+        """The next cycle's blocks, one a source in source order."""
         self.k += 1
-        return self.prefetch.get()
+        return list(self.prefetch.get())
 
     def drive(self):
-        """Set-up, warm-up and the window; returns the window's blocks.
+        """Set-up, warm-up and the window; returns the window's cycles.
         The station, its pool, the generator's thread and the tap are
         closed whatever happens."""
         import torch
@@ -274,9 +309,9 @@ class Run:
         try:
             st = self.station = self.build_station()
             # warm-up: the same loop, drained before the window
-            pending = st.captures_dispatch([self.next_block()])
+            pending = st.captures_dispatch(self.next_cycle(), self.centers)
             for _ in range(1, self.warm):
-                nxt = st.captures_dispatch([self.next_block()])
+                nxt = st.captures_dispatch(self.next_cycle(), self.centers)
                 st.captures_collect(pending)
                 pending = nxt
             st.captures_collect(pending)
@@ -299,7 +334,7 @@ class Run:
                 blocks, last = self.window(st)
             self.memory_peak = torch.cuda.max_memory_allocated() \
                 if self.cuda else 0
-            st.captures_collect(last)               # the block in flight
+            st.captures_collect(last)               # the cycle in flight
         finally:
             self.tap.close()
             self.prefetch.close()
@@ -308,24 +343,24 @@ class Run:
         return blocks
 
     def window(self, st):
-        """The measured window: dispatch block k+1, collect block k, until
-        ``seconds`` and CHAN_DRAW blocks have passed.  Returns the
-        collected blocks and the pending dispatch of the last one."""
+        """The measured window: dispatch cycle k+1, collect cycle k, until
+        ``seconds`` and CHAN_DRAW cycles have passed.  Returns the
+        collected cycles and the pending dispatch of the last one."""
         from torch.profiler import record_function as rf
         blocks = []
         with rf("window"):
             t0 = time.perf_counter()
-            blk = self.next_block()
+            blk = self.next_cycle()
             d0 = time.perf_counter()
             with rf("dispatch"):
-                pending = st.captures_dispatch([blk])
+                pending = st.captures_dispatch(blk, self.centers)
             cur = dict(k=self.k - 1, host=blk, pending=pending, t_disp=d0,
                        dispatch_s=time.perf_counter() - d0)
             while True:
-                blk = self.next_block()
+                blk = self.next_cycle()
                 d0 = time.perf_counter()
                 with rf("dispatch"):
-                    nxt = st.captures_dispatch([blk])
+                    nxt = st.captures_dispatch(blk, self.centers)
                 d1 = time.perf_counter()
                 j = len(blocks)
                 self.tap.on = self.wants(j)
@@ -335,7 +370,7 @@ class Run:
                 t_r = time.perf_counter()
                 self.tap.on = False
                 cur.update(t_ret=t_r, collect_s=t_r - d1, telem=tel,
-                           tasks=[(v["type"], fz - self.center)
+                           tasks=[(v["type"], float(fz))
                                   for fz, v in st.active.items()])
                 self.keep(j, cur)
                 blocks.append(cur)
@@ -347,31 +382,43 @@ class Run:
         return blocks, cur["pending"]
 
     def wants(self, j):
-        """Whether window block ``j``'s outputs are judged: its channel
+        """Whether window cycle ``j``'s outputs are judged: its channel
         rows (drawn from the seed) or its PSD (the first PSD_SAMPLES
-        scanned blocks from a seeded start)."""
+        scanned cycles from a seeded start)."""
         if j in self.chan_pick:
             return True
         return j >= self.psd_from and len(self.psd_keep) < PSD_SAMPLES
 
-    def keep(self, j, blk):
-        """Keeps what the check of block ``j`` needs, then drops the
-        station's pending tuple."""
-        p = blk.pop("pending")
-        if p[0] == "seq":
-            chf = self.tap.ch[0] if self.tap.ch else None
-            psd = self.tap.psd[0] if self.tap.psd else None
-            rec = set()
-            blk["scanned"] = self.tap.calls
+    def keep(self, j, cyc):
+        """Keeps what the check of cycle ``j`` needs, capture by capture
+        (a capture's channel rows, the rows its dispatch recentered, its
+        PSD row), and the number of captures whose PSD was taken; then
+        drops the station's pending tuple."""
+        p = cyc.pop("pending")
+        n_src = len(cyc["host"])
+        seq = p[0] == "seq"
+        if seq:
+            chfs, recs = self.tap.ch, [set()] * n_src
+            psds = [None] * n_src
+            for b, row in self.tap.psd:
+                psds[b] = row
+            cyc["scanned"] = self.tap.calls
         else:
-            chf, psd, rec = p[4], p[5], set(p[8]["rec"]) if p[8] else set()
-            blk["scanned"] = int(psd is not None)
-        if j in self.chan_pick and chf is not None:
-            self.chan_keep.append((blk["host"], chf, rec))
-        if psd is not None and j >= self.psd_from and \
+            chf, psd, n_chan = p[4], p[5], p[2].n_chan
+            rec = set(p[8]["rec"]) if p[8] else set()
+            chfs = [chf[b * n_chan:(b + 1) * n_chan] for b in range(n_src)]
+            psds = [None if psd is None else psd[b] for b in range(n_src)]
+            recs = [{c - b * n_chan for c in rec if c // n_chan == b}
+                    for b in range(n_src)]
+            cyc["scanned"] = 0 if psd is None else n_src
+        if j in self.chan_pick:
+            self.chan_keep.extend(zip(cyc["host"], chfs, recs))
+        if any(x is not None for x in psds) and j >= self.psd_from and \
                 len(self.psd_keep) < PSD_SAMPLES:
-            self.psd_keep.append((blk["host"], psd, p[0] == "seq"))
-        blk["host"] = None
+            self.psd_keep.append([(host, psd, seq) for host, psd in
+                                  zip(cyc["host"], psds)
+                                  if psd is not None])
+        cyc["host"] = None
 
     # ------------------------------------------------------------------ #
 
@@ -392,7 +439,7 @@ class Run:
         checks["chan_err"] = (max(errs) if errs else float("nan"),
                               limits["chan_err"])
         errs = []
-        for host, psd, seq in self.psd_keep:
+        for host, psd, seq in (x for cyc in self.psd_keep for x in cyc):
             got = np.asarray(psd if seq else psd.float().cpu().numpy())
             got = got.reshape(-1)
             if seq:
@@ -407,8 +454,7 @@ class Run:
             wrong.update((t, round(f, -2)) for t, f in
                          ref.wrong_tasks(self.traffic, b["tasks"]))
         for t, f in sorted(wrong):
-            print(f"wrong task: {t} at {f:+.0f} Hz from the centre",
-                  file=sys.stderr)
+            print(f"wrong task: {t} at {f / 1e6:.4f} MHz", file=sys.stderr)
         checks["wrong_tasks"] = (len(wrong), limits["wrong_tasks"])
         # telemetry against the truth, sonde by sonde
         k0, k1 = blocks[0]["k"], blocks[-1]["k"] + 1

@@ -9,9 +9,10 @@ events in us from the trace's base.  The benchmark's ``window`` span is in
 both: its kineto event's ``start_ns()`` and ``Trace.t0`` are one instant,
 which maps every span onto the trace.
 
-A window block is a block id that some span inside one of the trace's
-``collect`` spans carries: the blocks the window collected (the last
-block's dispatch, whose collect follows the window, is left out).
+A block id is a dispatch's, so one a cycle.  A window cycle is a block id
+that some span inside one of the trace's ``collect`` spans carries: the
+cycles the window collected (the last cycle's dispatch, whose collect
+follows the window, is left out).
 Without a card's trace, or with a program that keeps no spans, there is
 nothing to read.
 """
