@@ -28,6 +28,17 @@ one of three routes, as in the reference:
   candidate rows (its half-rate prescreen at 8 or more candidates),
   then per-type demod and decode (``decode_channels``).
 
+The captures of one cycle (a block from each of several SDRs over a
+band) may overlap.  Each task is demodulated and its bits decoded in one
+capture of the cycle, its owner (``Station._owner``): the capture that
+started it (or last decoded it) while the cycle holds it there, else
+the nearest that holds it; a scan peak another capture owns is no
+candidate.  So a sonde in an overlap leaves ``captures_collect``, and
+reaches the exporters, once a cycle, as a sonde does at upstream's
+station, which runs one decoder a sonde whatever the number of SDRs
+(the JAX package demodulates it in every capture that holds it).  A
+cycle of one capture, or of one source's micro-batch, is unchanged.
+
 The collect also runs the single-channel paths: a second sonde inside
 a channel whose row is taken (``_process_collision``: its own row
 extracted from the wideband block, then detect + decode) and the 96 kHz
@@ -159,7 +170,9 @@ class Station:
             n_workers = min(4, max(1, (os.cpu_count() or 2) - 1))
         self.frame_plane = FramePlane(n_workers)
         # task state (reference auto_rx.py task_list / temporary_block_list)
-        self.active = {}             # freq_hz (int) -> dict(type, decoder, last_ok)
+        # freq_hz (int) -> dict(type, decoder, last_ok, center: the
+        # center of the capture that last decoded it, ``_owner``)
+        self.active = {}
         self.temporary_blocks = {}   # freq_hz -> unblock time
         self.scan_results = []
         self.stats = dict(frames_ok=0, frames_filtered=0, detections=0)
@@ -233,8 +246,51 @@ class Station:
         return int(round(self._chan_center(ci) +
                          self._offsets.get(ci, 0.0)))
 
-    def in_capture(self, freq_hz: float) -> bool:
-        return abs(freq_hz - self.center_freq) <= self.fs_wide / 2
+    def in_capture(self, freq_hz: float,
+                   center_hz: float | None = None) -> bool:
+        """Whether the capture centered at ``center_hz`` (the current
+        center by default) holds ``freq_hz``."""
+        c = self.center_freq if center_hz is None else center_hz
+        return abs(freq_hz - c) <= self.fs_wide / 2
+
+    def _owner(self, fz: float, centers, prefer: float | None = None):
+        """The center of the capture of a cycle (``centers``, one a
+        block; blocks of one center are one capture) that demodulates
+        the task or scan peak at ``fz``, so that a sonde in the overlap
+        of two captures is decoded once a cycle: the center its task
+        (the active task within ``quantization``) was last decoded in,
+        while the cycle holds it there; else the nearest center that
+        holds it, the first in source order on a tie.  ``prefer`` (a
+        scan peak's own capture) is kept while it lies within
+        ``quantization`` as near as that, so that a peak two captures
+        see near their midpoint stays a candidate in at least one.  None
+        where no capture of the cycle holds ``fz``."""
+        holders = [c for c in dict.fromkeys(centers)
+                   if self.in_capture(fz, c)]
+        if len(holders) < 2:
+            return holders[0] if holders else None
+        q = float(self.config["quantization"])
+        task = min((g for g in self.active if abs(g - fz) <= q),
+                   key=lambda g: abs(g - fz), default=None)
+        if task is not None and self.active[task].get("center") in holders:
+            return self.active[task]["center"]
+        near = min(holders, key=lambda c: abs(fz - c))
+        if prefer in holders and abs(fz - prefer) <= abs(fz - near) + q:
+            return prefer
+        return near
+
+    def _owns(self, fz: float, centers) -> bool:
+        """Whether the current capture demodulates the task at ``fz``
+        in the cycle of ``centers``."""
+        return self._owner(fz, centers) == self.center_freq
+
+    def _count_overlaps(self, centers):
+        """Counts in ``overlap_rows`` the tasks that the current capture
+        holds and leaves to another capture of the cycle."""
+        n = sum(1 for fz in {**self.manual_tasks, **self.active}
+                if self.in_capture(fz) and not self._owns(fz, centers))
+        if n:
+            probe.count("overlap_rows", n, self.stats)
 
     def _blocked(self, freq_hz: float) -> bool:
         now = time.time()
@@ -456,15 +512,20 @@ class Station:
                 capacity=int(self.config.get("expert_capacity", 4)))
         return self._steps[key]
 
-    def process_capture(self, wideband_iq, center_freq_hz=None) -> list:
+    def process_capture(self, wideband_iq, center_freq_hz=None,
+                        cycle=None) -> list:
         """One full sequential cycle: scan -> detect -> demod -> decode
         -> export.
 
         ``center_freq_hz`` retunes the station for this block (band-plan
         hopping; task state is frequency-keyed so decoders persist across
-        hops).  Returns the accepted telemetry dicts."""
+        hops).  ``cycle``: the centers of every capture of this block's
+        cycle (this block's alone by default); a task or scan peak that
+        another of them owns (``_owner``) is left to it.  Returns the
+        accepted telemetry dicts."""
         if center_freq_hz is not None:
             self.center_freq = float(center_freq_hz)
+        cycle = [self.center_freq] if cycle is None else cycle
         prof = self.profile()
         n_chan = prof.n_chan
         planes = self._wide_planes(wideband_iq)
@@ -507,15 +568,19 @@ class Station:
             # re-decode every visit without needing a fresh detection
             forced = {}                  # row -> type name
             for fz, name in self.manual_tasks.items():
-                if self.in_capture(fz):
+                if self._owns(fz, cycle):
                     forced[_alloc(fz)] = name
             for fz, st in self.active.items():
-                if self.in_capture(fz):
+                if self._owns(fz, cycle):
                     forced.setdefault(_alloc(fz), st["type"])
+            self._count_overlaps(cycle)
             cand_rows = []
             wide_cands = []
             for ci, off in cands:
                 fq = self._chan_center(ci) + off
+                if self._owner(fq, cycle, prefer=self.center_freq) != \
+                        self.center_freq:
+                    continue             # another capture's sonde
                 if int(round(fq)) in self._wide_freqs:
                     wide_cands.append(fq)
                     continue
@@ -661,11 +726,11 @@ class Station:
         for b in range(B):
             self.center_freq = centers[b]
             for fz, name in self.manual_tasks.items():
-                if self.in_capture(fz):
+                if self._owns(fz, centers):
                     ci = self.channel_of_freq(fz)
                     pred.setdefault(b * n_chan + ci, (name, float(fz)))
             for fz, st_a in self.active.items():
-                if self.in_capture(fz):
+                if self._owns(fz, centers):
                     ci = self.channel_of_freq(fz)
                     pred.setdefault(b * n_chan + ci,
                                     (st_a["type"], float(fz)))
@@ -720,7 +785,8 @@ class Station:
                 _, blocks, centers, _ = pending
                 out = []
                 for b, c in zip(blocks, centers):
-                    out.extend(self.process_capture(b, center_freq_hz=c))
+                    out.extend(self.process_capture(b, center_freq_hz=c,
+                                                    cycle=centers))
                 return out
             _, step, prof, wide, chf, psd, B, centers, steady, _ = pending
             return self._collect_sharded(step, prof, wide, chf, psd, B,
@@ -767,14 +833,14 @@ class Station:
                            else [])
                 forced = {}              # ci -> (name, f_abs)
                 for fz, name in self.manual_tasks.items():
-                    if self.in_capture(fz):
+                    if self._owns(fz, centers):
                         ci = self.channel_of_freq(fz)
                         if ci in forced and abs(forced[ci][1] - fz) >= 1.0:
                             collide.append((b, float(fz), name))
                             continue
                         forced[ci] = (name, float(fz))
                 for fz, st_a in self.active.items():
-                    if self.in_capture(fz):
+                    if self._owns(fz, centers):
                         ci = self.channel_of_freq(fz)
                         if ci in forced and \
                                 abs(forced[ci][1] - fz) >= 1.0:
@@ -783,6 +849,7 @@ class Station:
                                 collide.append((b, float(fz), None))
                             continue
                         forced.setdefault(ci, (st_a["type"], float(fz)))
+                self._count_overlaps(centers)
                 for ci, (name, f_abs) in forced.items():
                     cid = b * n_chan + ci
                     tasks[cid] = (name, None)
@@ -797,6 +864,9 @@ class Station:
                 for ci, off in cands_b:
                     cid = b * n_chan + ci
                     fq = self._chan_center(ci) + off
+                    if self._owner(fq, centers, prefer=centers[b]) != \
+                            centers[b]:
+                        continue         # another capture's sonde
                     if int(round(fq)) in self._wide_freqs:
                         wide_host.append((b, fq))
                         continue
@@ -874,11 +944,18 @@ class Station:
                 self.center_freq = centers[b]
                 return self._chan_center(ci) + cid_off.get(cid, 0.0)
 
+            def _elsewhere(cid):
+                # a detection in a capture other than the nearest that
+                # holds it ranks after those in theirs: when two captures
+                # confirm one new sonde, the nearer takes it
+                own = self._owner(_task_fz(cid), centers)
+                return own is not None and own != centers[cid // n_chan]
+
             kept = [_task_fz(cid) for cid, (_, det) in tasks.items()
                     if det is None]
             for cid, (_, det) in sorted(
                     ((c, v) for c, v in tasks.items() if v[1] is not None),
-                    key=lambda kv: -kv[1][1].score):
+                    key=lambda kv: (_elsewhere(kv[0]), -kv[1][1].score)):
                 fz = _task_fz(cid)
                 if any(abs(fz - g) < spacing for g in kept):
                     del tasks[cid]
@@ -977,6 +1054,7 @@ class Station:
         out = []
         cache = {}
         meta = {}                    # pool ticket -> telemetry-tail args
+        probe.count("decode_rows", len(fused_items), self.stats)
         for name, j, cid in fused_items:
             if name not in cache:
                 soft, bits, stats = fused[name]
@@ -1011,7 +1089,8 @@ class Station:
                     fz, model_name,
                     self._decoder_kwargs(name, model_name), bits,
                     None if soft is None else -soft)
-                meta[ticket] = (name, fz, snr, None, fr, fd)
+                meta[ticket] = (name, fz, snr, None, fr, fd,
+                                self.center_freq)
                 continue
             try:
                 out.extend(self._decode_frames(
@@ -1134,6 +1213,7 @@ class Station:
             log.warning("expert routing dropped %d channel(s) — raise "
                         "expert_capacity", dropped)
         out = []
+        probe.count("decode_rows", int(mask.sum()), self.stats)
         for e, name in enumerate(EXPERT_TYPES):
             afsk = bool(CHAIN_TABLE[name].get("afsk"))
             for s in np.flatnonzero(mask[e]):
@@ -1264,6 +1344,7 @@ class Station:
                                                         self.device)
             bits_b, soft_b = _np(bits_b), _np(soft_b)
         stats = {k: _np(v) for k, v in stats.items()}
+        probe.count("decode_rows", len(items), self.stats)
         out = []
         ebno = np.atleast_2d(stats["ebno_db"]) if "ebno_db" in stats \
             else None
@@ -1347,14 +1428,16 @@ class Station:
             meta[ticket] = (name, fz,
                             None if ebno is None else float(ebno[j].max()),
                             det, resid[j] if resid is not None else None,
-                            self._f_demod_of(real_ci, fz, wide_mode))
+                            self._f_demod_of(real_ci, fz, wide_mode),
+                            self.center_freq)
         return self._pooled_tail(meta)
 
     def _pooled_tail(self, meta) -> list:
         """Gather the frame-plane workers' results and run the light
         main-process tail (enrich/filter/export) in ticket order, so the
         output order matches the inline path.  ``meta`` maps a ticket to
-        ``(name, fz, snr_db, det, f_resid, f_demod)``."""
+        ``(name, fz, snr_db, det, f_resid, f_demod, center)``, ``center``
+        that of the capture the row was demodulated in."""
         results = self.frame_plane.gather()
         if self.frame_plane.workers > 0:
             # decodes and tasks a worker and the tasks moved between
@@ -1364,7 +1447,7 @@ class Station:
             self.stats["pool_moves"] = self.frame_plane.moves
         out = []
         for ticket in sorted(meta):
-            name, fz, snr_db, det, f_resid, f_demod = meta[ticket]
+            name, fz, snr_db, det, f_resid, f_demod, center = meta[ticket]
             state = self.active.get(fz)
             if state is None or state["type"] != name:
                 # a fresh task starts its rx_timeout clock now: a type
@@ -1373,6 +1456,7 @@ class Station:
                 state = dict(type=name, decoder=None,
                              last_ok=time.time())
                 self.active[fz] = state
+            state["center"] = center     # the task's owner (``_owner``)
             try:
                 out.extend(self._post_frames(fz, state,
                                              results.get(ticket, []),
@@ -1419,6 +1503,7 @@ class Station:
                                                            model_name)),
                 last_ok=prev_ok)
             self.active[fz] = state
+        state["center"] = self.center_freq   # the task's owner (``_owner``)
         with probe.span("frame_plane.decode", worker=None,
                         model=model_name) as sp:
             raw_telems = state["decoder"].decode_bits(

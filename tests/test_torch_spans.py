@@ -16,9 +16,10 @@ benchmark's readers of them (``stationbench/spans.py``,
   each other on the trace; ``probe.trace`` writes the spans into its
   ``trace.json``.
 * A small CPU station with a pool fills ``spec_predicted``,
-  ``fused_channels`` and ``pool_decodes``, and every span of a block
-  carries the block id of its dispatch; a block handed over as a host
-  array to a station on another device is timed as ``station.h2d``.
+  ``fused_channels``, ``decode_rows`` and ``pool_decodes``, and every
+  span of a block carries the block id of its dispatch; a block handed
+  over as a host array to a station on another device is timed as
+  ``station.h2d``.
 * Each new reader gives its value on a synthetic run: spans, counts and a
   ``stationbench.trace.Trace`` built from events.
 """
@@ -259,8 +260,11 @@ def test_station_counts_and_blocks():
     n_pred = len(cs.sondes_for(8, 384_000))
     assert st.stats["spec_predicted"] == 2 * n_pred
     assert 0 < st.stats["fused_channels"] <= st.stats["spec_predicted"]
+    # every task's row goes to frame decode once a block
+    assert st.stats["decode_rows"] == 2 * n_pred
     assert probe.counts() == {k: st.stats[k] for k in
-                              ("spec_predicted", "fused_channels")}
+                              ("spec_predicted", "fused_channels",
+                               "decode_rows")}
     dec = [s for s in probe.spans() if s.name == "frame_plane.decode"]
     assert len(st.stats["pool_decodes"]) == 2
     assert sum(st.stats["pool_decodes"]) == len(dec) > 0
@@ -372,7 +376,7 @@ def _synthetic_run():
         SimpleNamespace(name=lambda: "window", start_ns=lambda: W_NS)])
     run = SimpleNamespace(prof=SimpleNamespace(
         profiler=SimpleNamespace(kineto_results=kineto)))
-    counts = {"spec_predicted": 8, "fused_channels": 6}
+    counts = {"spec_predicted": 8, "fused_channels": 6, "decode_rows": 7}
     return run, [{}, {}], trace, spans, counts
 
 
@@ -383,7 +387,7 @@ def _synthetic_run():
 READINGS = [("h2d_ms", 0.3), ("policy_ms", 5.0), ("d2h_wait_ms", 1.5),
             ("pool_wait_ms", 35.0), ("decode_busiest_ms", 25.0),
             ("spec_hit_pct", 75.0), ("idle_pool_wait_pct", 65.0),
-            ("detect_ms", 2.0)]
+            ("detect_ms", 2.0), ("decode_rows", 3.5)]
 
 
 @pytest.mark.parametrize("name,want", READINGS)
@@ -422,10 +426,14 @@ def test_benchmark_lists_the_readers():
     per = {m["name"]: m for m in bench["per_layer"]}
     for name, _ in READINGS:
         assert per[name]["moves"] == "realtime_x"
-    # confirm never ran inside busy10's window, the detector in lband's
-    assert per["spec_hit_pct"]["workloads"] == ["uhf400.busy10"]
+    # confirm never ran inside busy10's window, the detector in lband's;
+    # the three-source cell reads what busy10 reads
+    assert per["spec_hit_pct"]["workloads"] == ["uhf400.busy10",
+                                                "uhf400x3.band12"]
     assert per["detect_ms"]["workloads"] == ["lband1680.rs92_lms6"]
+    assert per["decode_rows"]["workloads"] == ["uhf400x3.band12"]
     assert np.all([per[n]["workloads"] == ["uhf400.busy10",
-                                           "lband1680.rs92_lms6"]
+                                           "lband1680.rs92_lms6",
+                                           "uhf400x3.band12"]
                    for n, _ in READINGS
-                   if n not in ("spec_hit_pct", "detect_ms")])
+                   if n not in ("spec_hit_pct", "detect_ms", "decode_rows")])
