@@ -1706,7 +1706,6 @@ def cli_phase(dev, card):
         load_station_state
     from radiosonde_auto_rx_tpu_torch.station.config import default_config
     from radiosonde_auto_rx_tpu_torch.station.frame_plane import FramePlane
-    from radiosonde_auto_rx_tpu_torch.station.station import Station
     t_phase = time.perf_counter()
     shutil.rmtree(WORK, ignore_errors=True)
     WORK.mkdir(parents=True)
@@ -1765,8 +1764,9 @@ def cli_phase(dev, card):
           f"telemetry {seen}; {tickets.pooled} tickets served by workers; "
           f"launches {launches}, demod calls {calls.calls} ({card})")
     # the steady 1 s block with the pool and without it, in turns, with
-    # the host time in the frame decode: inline, the station's decode
-    # calls; pooled, the enqueue of the tickets and the wait for them
+    # the host time in the frame decode: the frame plane's decode calls
+    # (inline, the decodes themselves; pooled, the enqueue of the
+    # tickets) and its gathers (pooled, the wait for the tickets)
     # nvidia-smi's PIDs are another PID namespace's: count the apps
     # (this process's context, before any worker exists) and read the
     # workers' own memory maps
@@ -1776,8 +1776,7 @@ def cli_phase(dev, card):
                              "driver, so the workers' maps prove nothing")
     walls, decode_s = {}, {}
     for workers in (0, -1, -1, 0):
-        with HostTime((Station, "_decode_frames"), (FramePlane, "decode"),
-                      (FramePlane, "gather")) as ht:
+        with HostTime((FramePlane, "decode"), (FramePlane, "gather")) as ht:
             (res,), _ = drive_station(
                 dev, [split_blocks(stream, FS_WIDE, 1) * 2], N_CHAN,
                 FS_WIDE, frame_plane_workers=workers)

@@ -6,7 +6,7 @@ host-side Python (frame sync, ECC, field extraction) and was previously
 serial per channel — the system bottleneck well before the demod's
 per-chip channel count (COMPONENTS.md known-gaps; VERDICT round 1 #6).
 
-This plane is the TPU-native analogue of the reference's
+This plane is the port's analogue of the reference's
 process-per-sonde decoder isolation (reference auto_rx/autorx/decode.py
 :1602-2002 runs one subprocess pipeline per active sonde): N worker
 processes, each owning the *stateful* frame decoders (RS41 subframe
@@ -23,11 +23,12 @@ loaded worker to the least loaded one when that lowers the larger of the
 two loads by a clear margin — the owner pickles the decoder out and
 forgets it, the new worker takes it in.  The main process keeps the
 light parts: telemetry enrichment, filtering and exporter fan-out
-(station.py `_decode_frames` tail).
+(station.py ``Station._decode_rows``, the station's one fan-out).
 
-Workers are plain numpy processes — they never touch JAX or the TPU.
-``workers=0`` (the default) keeps the fully inline single-process
-behavior.
+Workers are plain numpy processes: they import no torch and never touch
+a device.  ``workers=0`` decodes inline in the calling process, with
+the same decoder rules (``_decode``); the station's default,
+``frame_plane_workers`` -1, sizes the pool from the CPU count.
 """
 
 import logging
@@ -53,11 +54,32 @@ def _build_decoder(model_name: str, kwargs: dict):
     return get_model(model_name)(**kwargs)
 
 
+def _decode(decoders, msg, w):
+    """One ``("decode", ticket, fz, name, model_name, kwargs, bits, soft)``
+    against ``decoders``, ``{fz: (type name, decoder)}``: a task's decoder
+    is rebuilt when its type changes, and a decoder's exception yields no
+    telemetry and its traceback.  Returns (ticket, telemetry, traceback or
+    None, timing): worker ``w``, pid, start, end on ``time.time_ns()``,
+    model, frames."""
+    _, ticket, fz, name, model_name, kwargs, bits, soft = msg
+    t0 = time.time_ns()
+    try:
+        st = decoders.get(fz)
+        if st is None or st[0] != name:
+            st = (name, _build_decoder(model_name, kwargs))
+            decoders[fz] = st
+        telems = st[1].decode_bits(bits, soft)
+        err = None
+    except Exception:
+        telems, err = [], traceback.format_exc()
+    return ticket, telems, err, (w, os.getpid(), t0, time.time_ns(),
+                                 model_name, len(telems))
+
+
 def _worker_main(inq, outq, w=0):
-    """Worker loop: owns {freq -> (model_name, decoder)} state.  Each
-    result carries the decode's timing: (worker ``w``, pid, start, end
-    on ``time.time_ns()``, model, frames).  ``export`` hands a task's
-    state out pickled (and forgets it), ``import`` takes one in."""
+    """Worker loop: owns {freq -> (type name, decoder)} state, decodes
+    with ``_decode``.  ``export`` hands a task's state out pickled (and
+    forgets it), ``import`` takes one in."""
     decoders = {}
     while True:
         msg = inq.get()
@@ -87,20 +109,7 @@ def _worker_main(inq, outq, w=0):
             if st is not None:
                 decoders[msg[1]] = st
             continue
-        # ("decode", ticket, fz, model_name, kwargs, bits, soft)
-        _, ticket, fz, model_name, kwargs, bits, soft = msg
-        t0 = time.time_ns()
-        try:
-            st = decoders.get(fz)
-            if st is None or st[0] != model_name:
-                st = (model_name, _build_decoder(model_name, kwargs))
-                decoders[fz] = st
-            telems = st[1].decode_bits(bits, soft)
-            err = None
-        except Exception:
-            telems, err = [], traceback.format_exc()
-        outq.put((ticket, telems, err, (w, os.getpid(), t0, time.time_ns(),
-                                        model_name, len(telems))))
+        outq.put(_decode(decoders, msg, w))
 
 
 class FramePlane:
@@ -109,7 +118,8 @@ class FramePlane:
     decode() enqueues one channel's bit stream and returns a ticket;
     gather() blocks until every outstanding ticket resolved and returns
     {ticket: telemetry_list}.  With ``workers=0`` decode() runs inline
-    (identical semantics, zero processes).
+    (identical semantics, zero processes).  A task's decoder is keyed by
+    its type name (``name``), built from its model (``model_name``).
 
     ``owner`` is the placement table, ``{fz: worker}``: a task is placed
     on the least-loaded worker at its first decode, and its state stays
@@ -157,7 +167,7 @@ class FramePlane:
                         "falling back to inline decode", mf)
             self.workers = 0
             return
-        # spawn (not fork): the parent owns a live TPU client and
+        # spawn (not fork): the parent may hold a CUDA context and
         # forked children must never inherit its handles.  Workers
         # import numpy-only decoder modules on startup.
         ctx = mp.get_context("spawn")
@@ -194,7 +204,7 @@ class FramePlane:
             n[w] += 1
         return n
 
-    def decode(self, fz: int, model_name: str, kwargs: dict,
+    def decode(self, fz: int, name: str, model_name: str, kwargs: dict,
                bits, soft) -> int:
         """Enqueue one channel's frame decode; returns a ticket."""
         ticket = self._next_ticket
@@ -206,16 +216,12 @@ class FramePlane:
         ctx = probe.context()
         if ctx is not None:
             self._ctx[ticket] = ctx
+        msg = ("decode", ticket, fz, name, model_name, kwargs, bits, soft)
         if self.workers == 0:
-            st = self._decoders.get(fz)
-            if st is None or st[0] != model_name:
-                st = (model_name, _build_decoder(model_name, kwargs))
-                self._decoders[fz] = st
-            t0 = time.time_ns()
-            telems = st[1].decode_bits(bits, soft)
-            self._inline_results[ticket] = (
-                telems, (None, os.getpid(), t0, time.time_ns(), model_name,
-                         len(telems)))
+            _, telems, err, tm = _decode(self._decoders, msg, None)
+            if err:
+                log.error("frame plane decode error:\n%s", err)
+            self._inline_results[ticket] = (telems, tm)
             return ticket
         w = self.owner.get(fz)
         if w is None:
@@ -226,8 +232,7 @@ class FramePlane:
         self._fz_of[ticket] = fz
         if not self._procs[w].is_alive():
             self._respawn_dead()
-        self._inqs[w].put(
-            ("decode", ticket, fz, model_name, kwargs, bits, soft))
+        self._inqs[w].put(msg)
         self._pending += 1
         return ticket
 

@@ -47,10 +47,11 @@ wide scan of the candidates the PSD width gate flags
 step like any other type; the Weathex chains are extracted per task at
 their own rate from the retained wideband block (``decode_channels``).
 
-Frame decoding runs in the frame-plane worker pool
-(``frame_plane_workers``, -1 = sized from the CPU count, as in the
-reference; 0 = inline): the workers own each task's decoder state, the
-main process keeps the telemetry tail, in ticket order.
+Every route decodes frames through one fan-out, ``_decode_rows``, into
+``FramePlane`` (``frame_plane_workers``, -1 = a worker pool sized from
+the CPU count, as in the reference; 0 = inline), which alone holds each
+task's decoder; the main process keeps the telemetry tail, in ticket
+order.
 
 The mesh: ``Station(..., mesh=...)``, else with ``use_mesh`` on
 ``make_mesh(n_t=mesh_time_shards)`` over every visible CUDA device when
@@ -77,7 +78,6 @@ from radiosonde_auto_rx_tpu_torch.detect.psd import power_spectrum, scan_peaks
 from radiosonde_auto_rx_tpu_torch.detect.scanner import SondeDetector
 from radiosonde_auto_rx_tpu_torch.detect.templates import (
     TEMPLATES, WIDEBAND_TEMPLATES)
-from radiosonde_auto_rx_tpu_torch.models import get_model
 from radiosonde_auto_rx_tpu_torch.models.imet4 import afsk_fm_audio
 from radiosonde_auto_rx_tpu_torch.ops.channelizer import (
     channel_freqs, channelize, extract_channels, extract_phases,
@@ -170,8 +170,9 @@ class Station:
             n_workers = min(4, max(1, (os.cpu_count() or 2) - 1))
         self.frame_plane = FramePlane(n_workers)
         # task state (reference auto_rx.py task_list / temporary_block_list)
-        # freq_hz (int) -> dict(type, decoder, last_ok, center: the
-        # center of the capture that last decoded it, ``_owner``)
+        # freq_hz (int) -> dict(type, last_ok, center: the center of the
+        # capture that last decoded it, ``_owner``); its decoder lives in
+        # ``frame_plane``
         self.active = {}
         self.temporary_blocks = {}   # freq_hz -> unblock time
         self.scan_results = []
@@ -1051,9 +1052,8 @@ class Station:
         """Host frame plane over the fused steady-step demod outputs
         (the ``decode_channels`` tail without re-dispatching device
         work)."""
-        out = []
         cache = {}
-        meta = {}                    # pool ticket -> telemetry-tail args
+        rows = []
         probe.count("decode_rows", len(fused_items), self.stats)
         for name, j, cid in fused_items:
             if name not in cache:
@@ -1070,38 +1070,16 @@ class Station:
                     bool(chain.get("afsk")))
             soft_b, bits_b, eb, resid, afsk = cache[name]
             b, ci = divmod(cid, n_chan)
-            self.center_freq = centers[b]
-            self._offsets = {ci: cid_off.get(cid, 0.0)}
-            fz = self.freq_of_channel(ci)
+            fz, fd = self._row_freqs(centers[b], ci, cid_off.get(cid, 0.0),
+                                     ext_cid.get(cid, 0.0))
             bits = bits_b[j]
-            soft = None if afsk else soft_b[j]
             if afsk:
                 bits = 1 - bits      # sym 0 = 1200 Hz = bit 1
-            snr = None if eb is None else float(eb[j].max())
-            fr = None if resid is None else resid[j]
-            fd = self._f_demod_of(ci, fz, ext=ext_cid.get(cid, 0.0))
-            if self.frame_plane.workers > 0:
-                # the worker owns this task's decoder state: an inline
-                # decode here would build a second decoder whose state
-                # diverges from the worker's
-                model_name = MODEL_NAME.get(name, name)
-                ticket = self.frame_plane.decode(
-                    fz, model_name,
-                    self._decoder_kwargs(name, model_name), bits,
-                    None if soft is None else -soft)
-                meta[ticket] = (name, fz, snr, None, fr, fd,
-                                self.center_freq)
-                continue
-            try:
-                out.extend(self._decode_frames(
-                    fz, name, bits, soft, snr, None,
-                    f_resid=fr, f_demod=fd))
-            except Exception:
-                log.exception("decode failed on %.3f MHz (%s)",
-                              fz / 1e6, name)
-        if meta:
-            out.extend(self._pooled_tail(meta))
-        return out
+            rows.append((name, fz, bits, None if afsk else soft_b[j],
+                         None if eb is None else float(eb[j].max()), None,
+                         None if resid is None else resid[j], fd,
+                         centers[b]))
+        return self._decode_rows(rows)
 
     def _process_collision(self, prof, planes, f_abs: float,
                            forced_name: str | None = None) -> list:
@@ -1212,33 +1190,26 @@ class Station:
             # detections exceed the available SDRs
             log.warning("expert routing dropped %d channel(s) — raise "
                         "expert_capacity", dropped)
-        out = []
+        rows = []
         probe.count("decode_rows", int(mask.sum()), self.stats)
         for e, name in enumerate(EXPERT_TYPES):
             afsk = bool(CHAIN_TABLE[name].get("afsk"))
             for s in np.flatnonzero(mask[e]):
                 cid = int(ids[e, s])
                 b, ci = divmod(cid, n_chan)
-                self.center_freq = centers[b]
-                self._offsets = {ci: cid_off.get(cid, 0.0)}
-                fz = self.freq_of_channel(ci)
-                det = tasks.get(cid, (None, None))[1]
+                fz, fd = self._row_freqs(centers[b], ci,
+                                         cid_off.get(cid, 0.0),
+                                         ext_cid.get(cid, 0.0))
                 bits, soft = step.slot_bits(res, e, int(s), t_total)
                 if afsk:
                     bits, soft = 1 - bits, None  # sym 0 = 1200 Hz = bit 1
                 f_resid = None
                 if not afsk and fcnt[e, s] >= 1.0:
                     f_resid = float(np.clip(fres[e, s], -2500.0, 2500.0))
-                try:
-                    out.extend(self._decode_frames(
-                        fz, name, bits, soft, float(ebno[e, s]), det,
-                        f_resid=f_resid,
-                        f_demod=self._f_demod_of(
-                            ci, fz, ext=ext_cid.get(cid, 0.0))))
-                except Exception:
-                    log.exception("decode failed on %.3f MHz (%s)",
-                                  fz / 1e6, name)
-        return out
+                rows.append((name, fz, bits, soft, float(ebno[e, s]),
+                             tasks.get(cid, (None, None))[1], f_resid, fd,
+                             centers[b]))
+        return self._decode_rows(rows)
 
     @staticmethod
     def group_tasks_by_type(tasks, n_rows: int) -> dict:
@@ -1345,39 +1316,37 @@ class Station:
             bits_b, soft_b = _np(bits_b), _np(soft_b)
         stats = {k: _np(v) for k, v in stats.items()}
         probe.count("decode_rows", len(items), self.stats)
-        out = []
         ebno = np.atleast_2d(stats["ebno_db"]) if "ebno_db" in stats \
             else None
         resid = self._freq_residuals(stats, chain, len(items))
-        if self.frame_plane.workers > 0:
-            return self._decode_frames_pooled(items, name, bits_b, soft_b,
-                                              ebno, chan_map, resid,
-                                              wide_mode)
+        rows = []
         for j, (ci, det) in enumerate(items):
             real_ci = chan_map[ci] if chan_map else ci
             fz = self.freq_of_channel(real_ci)
-            try:
-                out.extend(self._decode_frames(
-                    fz, name, bits_b[j],
-                    None if soft_b is None else soft_b[j],
-                    None if ebno is None else float(ebno[j].max()), det,
-                    f_resid=resid[j] if resid is not None else None,
-                    f_demod=self._f_demod_of(real_ci, fz, wide_mode)))
-            except Exception:
-                # one bad channel/decoder must not kill the capture loop
-                log.exception("decode failed on %.3f MHz (%s)",
-                              fz / 1e6, name)
-        return out
+            rows.append((name, fz, bits_b[j],
+                         None if soft_b is None else soft_b[j],
+                         None if ebno is None else float(ebno[j].max()), det,
+                         None if resid is None else resid[j],
+                         self._f_demod_of(real_ci, fz, wide_mode),
+                         self.center_freq))
+        return self._decode_rows(rows)
 
-    def _f_demod_of(self, real_ci: int, fz: int, wide_mode: bool = False,
-                    ext=None) -> float:
+    def _row_freqs(self, center: float, ci: int, off: float,
+                   ext: float) -> tuple:
+        """(task key, demod anchor) of PFB row ``ci`` in the capture
+        centered at ``center``, the task ``off`` and the row's extraction
+        ``ext`` Hz from the channel center: ``freq_of_channel`` and
+        ``_f_demod_of`` of the row with the station at that center."""
+        f = center + float(self.profile(center).freqs[ci])
+        return int(round(f + off)), f + float(ext)
+
+    def _f_demod_of(self, real_ci: int, fz: int, wide_mode: bool) -> float:
         """Absolute frequency row ``real_ci`` was DEMODULATED at (the
-        drift-retune anchor, so every decode path goes through here): the
-        task frequency for a wide extraction, the recorded extraction
-        frequency for a row beyond the PFB grid, else the channel center
-        plus the row's actual extraction offset (0 for plain PFB rows).
-        ``ext`` overrides the offset lookup for callers that track
-        offsets in cid-space."""
+        drift-retune anchor; ``_row_freqs`` gives it for the fused and
+        routed rows): the task frequency for a wide extraction, the
+        recorded extraction frequency for a row beyond the PFB grid, else
+        the channel center plus the row's actual extraction offset (0 for
+        plain PFB rows)."""
         if wide_mode:
             return float(fz)
         if real_ci >= self.profile().n_chan:
@@ -1385,9 +1354,8 @@ class Station:
             # may since have moved by a detector refinement it never saw
             base = self._ext_off.get(real_ci)
             return float(fz) if base is None else float(base)
-        if ext is None:
-            ext = self._ext_off.get(real_ci, 0.0)
-        return self._chan_center(real_ci) + float(ext)
+        return self._chan_center(real_ci) + float(
+            self._ext_off.get(real_ci, 0.0))
 
     @staticmethod
     def _freq_residuals(stats, chain, n_items):
@@ -1411,33 +1379,19 @@ class Station:
                     max(float(good.sum()), 1.0), -2500.0, 2500.0))
         return resid
 
-    def _decode_frames_pooled(self, items, name, bits_b, soft_b, ebno,
-                              chan_map, resid=None,
-                              wide_mode=False) -> list:
-        """Fan this type's channels out to the frame-plane workers, then
-        run the tail (``_pooled_tail``)."""
-        model_name = MODEL_NAME.get(name, name)
-        meta = {}
-        for j, (ci, det) in enumerate(items):
-            real_ci = chan_map[ci] if chan_map else ci
-            fz = self.freq_of_channel(real_ci)
-            soft = None if soft_b is None else -soft_b[j]
-            ticket = self.frame_plane.decode(
-                fz, model_name, self._decoder_kwargs(name, model_name),
-                bits_b[j], soft)
-            meta[ticket] = (name, fz,
-                            None if ebno is None else float(ebno[j].max()),
-                            det, resid[j] if resid is not None else None,
-                            self._f_demod_of(real_ci, fz, wide_mode),
-                            self.center_freq)
-        return self._pooled_tail(meta)
-
-    def _pooled_tail(self, meta) -> list:
-        """Gather the frame-plane workers' results and run the light
-        main-process tail (enrich/filter/export) in ticket order, so the
-        output order matches the inline path.  ``meta`` maps a ticket to
-        ``(name, fz, snr_db, det, f_resid, f_demod, center)``, ``center``
-        that of the capture the row was demodulated in."""
+    def _decode_rows(self, rows) -> list:
+        """The one frame-decode fan-out of every route: each row ``(name,
+        fz, bits, soft, snr_db, det, f_resid, f_demod, center)`` (``soft``
+        the demod's, None for AFSK; ``center`` that of the capture the
+        row was demodulated in) is decoded by ``frame_plane``, which holds
+        every task's decoder, a ticket a row in row order; then the light
+        main-process tail (enrich/filter/export) runs in ticket order."""
+        tickets = []
+        for name, fz, bits, soft, *_ in rows:
+            model_name = MODEL_NAME.get(name, name)
+            tickets.append(self.frame_plane.decode(
+                fz, name, model_name, self._decoder_kwargs(name, model_name),
+                bits, None if soft is None else -soft))
         results = self.frame_plane.gather()
         if self.frame_plane.workers > 0:
             # decodes and tasks a worker and the tasks moved between
@@ -1446,15 +1400,14 @@ class Station:
             self.stats["pool_tasks"] = self.frame_plane.tasks()
             self.stats["pool_moves"] = self.frame_plane.moves
         out = []
-        for ticket in sorted(meta):
-            name, fz, snr_db, det, f_resid, f_demod, center = meta[ticket]
+        for ticket, (name, fz, _, _, snr_db, det, f_resid, f_demod,
+                     center) in zip(tickets, rows):
             state = self.active.get(fz)
             if state is None or state["type"] != name:
                 # a fresh task starts its rx_timeout clock now: a type
                 # that needs several blocks to confirm a serial (DFM)
                 # must not be reaped before its first accepted frame
-                state = dict(type=name, decoder=None,
-                             last_ok=time.time())
+                state = dict(type=name, last_ok=time.time())
                 self.active[fz] = state
             state["center"] = center     # the task's owner (``_owner``)
             try:
@@ -1485,35 +1438,8 @@ class Station:
                 kwargs["ephemeris"] = eph
         return kwargs
 
-    def _decode_frames(self, fz, name, bits, soft, snr_db, det,
-                       f_resid=None, f_demod=None) -> list:
-        """Host frame plane for one channel (task-keyed by absolute
-        frequency ``fz``): decoder state, frame decode,
-        enrich/filter/export."""
-        model_name = MODEL_NAME.get(name, name)
-        state = self.active.get(fz)
-        if state is None or state["type"] != name or \
-                state.get("decoder") is None:
-            decoder_cls = get_model(model_name)
-            prev_ok = state["last_ok"] if state is not None and \
-                state.get("type") == name else time.time()
-            state = dict(
-                type=name,
-                decoder=decoder_cls(**self._decoder_kwargs(name,
-                                                           model_name)),
-                last_ok=prev_ok)
-            self.active[fz] = state
-        state["center"] = self.center_freq   # the task's owner (``_owner``)
-        with probe.span("frame_plane.decode", worker=None,
-                        model=model_name) as sp:
-            raw_telems = state["decoder"].decode_bits(
-                bits, None if soft is None else -soft)
-            sp.set(frames=len(raw_telems))
-        return self._post_frames(fz, state, raw_telems, snr_db, det,
-                                 f_resid, f_demod)
-
-    def _post_frames(self, fz, state, raw_telems, snr_db, det,
-                     f_resid=None, f_demod=None) -> list:
+    def _post_frames(self, fz, state, raw_telems, snr_db, det, f_resid,
+                     f_demod) -> list:
         """Telemetry tail: enrich, filter, export, task bookkeeping, and
         the drift follow (anchored to the demod center ``f_demod``)."""
         freq_hz = float(fz)
@@ -1546,8 +1472,7 @@ class Station:
                 except Exception:
                     log.exception("exporter error")
         if out and f_resid is not None and np.isfinite(f_resid):
-            anchor = fz if f_demod is None else f_demod
-            target = round(anchor + f_resid, -2)
+            target = round(f_demod + f_resid, -2)
             if abs(target - fz) >= DRIFT_MIN_HZ:
                 if self._defer_retunes is not None:
                     # a scan-peak (absorb) target wins over a resid one

@@ -57,13 +57,15 @@ def bench_type(sonde_type, channels, rounds, workers, n_frames=20,
     try:
         # warmup: builds per-frequency decoder state in every worker
         for c in range(channels):
-            plane.decode(1000 + c, model_name, kwargs, bits, None)
+            plane.decode(1000 + c, sonde_type, model_name, kwargs, bits,
+                         None)
         warm = plane.gather()
         decoded = sum(len(v) for v in warm.values())
         t0 = time.perf_counter()
         for _ in range(rounds):
             for c in range(channels):
-                plane.decode(1000 + c, model_name, kwargs, bits, None)
+                plane.decode(1000 + c, sonde_type, model_name, kwargs, bits,
+                             None)
             plane.gather()
         dt = time.perf_counter() - t0
     finally:

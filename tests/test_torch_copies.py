@@ -224,7 +224,12 @@ CHANGED = {
     # ``time.time_ns()``), kept as a ``utils.probe`` span and counted a
     # worker; the wait on the pool is a span; a placement table by
     # measured decode cost with an exact hand-over of decoder state, in
-    # place of routing by frequency hash (F9)
+    # place of routing by frequency hash (F9); one decode (``_decode``)
+    # for the worker loop and the inline plane, so that an inline
+    # decoder's exception is logged and yields [] as a worker's does, and
+    # a task's decoder keyed by its type name (rebuilt when the type
+    # changes, as the reference's inline station does); the docstring
+    # names the port's device and the station's default
     "station/frame_plane.py": [
         ("            self._procs.append(p)\n",
          "            self._procs.append(p)\n"
@@ -236,24 +241,47 @@ CHANGED = {
          'from radiosonde_auto_rx_tpu_torch.utils import probe\n'),
         ('def _worker_main(inq, outq):\n'
          '    """Worker loop: owns {freq -> (model_name, decoder)} state."""\n',
+         'def _decode(decoders, msg, w):\n'
+         '    """One ``("decode", ticket, fz, name, model_name, kwargs, bits, soft)``\n'
+         "    against ``decoders``, ``{fz: (type name, decoder)}``: a task's decoder\n"
+         "    is rebuilt when its type changes, and a decoder's exception yields no\n"
+         '    telemetry and its traceback.  Returns (ticket, telemetry, traceback or\n'
+         '    None, timing): worker ``w``, pid, start, end on ``time.time_ns()``,\n'
+         '    model, frames."""\n'
+         '    _, ticket, fz, name, model_name, kwargs, bits, soft = msg\n'
+         '    t0 = time.time_ns()\n'
+         '    try:\n'
+         '        st = decoders.get(fz)\n'
+         '        if st is None or st[0] != name:\n'
+         '            st = (name, _build_decoder(model_name, kwargs))\n'
+         '            decoders[fz] = st\n'
+         '        telems = st[1].decode_bits(bits, soft)\n'
+         '        err = None\n'
+         '    except Exception:\n'
+         '        telems, err = [], traceback.format_exc()\n'
+         '    return ticket, telems, err, (w, os.getpid(), t0, time.time_ns(),\n'
+         '                                 model_name, len(telems))\n'
+         '\n'
+         '\n'
          'def _worker_main(inq, outq, w=0):\n'
-         '    """Worker loop: owns {freq -> (model_name, decoder)} state.  Each\n'
-         "    result carries the decode's timing: (worker ``w``, pid, start, end\n"
-         '    on ``time.time_ns()``, model, frames).  ``export`` hands a task\'s\n'
-         '    state out pickled (and forgets it), ``import`` takes one in."""\n'),
-        ('        _, ticket, fz, model_name, kwargs, bits, soft = msg\n',
+         '    """Worker loop: owns {freq -> (type name, decoder)} state, decodes\n'
+         '    with ``_decode``.  ``export`` hands a task\'s state out pickled (and\n'
+         '    forgets it), ``import`` takes one in."""\n'),
+        ('        # ("decode", ticket, fz, model_name, kwargs, bits, soft)\n'
          '        _, ticket, fz, model_name, kwargs, bits, soft = msg\n'
-         '        t0 = time.time_ns()\n'),
-        ('            outq.put((ticket, telems, None))\n'
+         '        try:\n'
+         '            st = decoders.get(fz)\n'
+         '            if st is None or st[0] != model_name:\n'
+         '                st = (model_name, _build_decoder(model_name, kwargs))\n'
+         '                decoders[fz] = st\n'
+         '            telems = st[1].decode_bits(bits, soft)\n'
+         '            outq.put((ticket, telems, None))\n'
          '        except Exception:\n'
          '            outq.put((ticket, [], traceback.format_exc()))\n',
-         '            err = None\n'
-         '        except Exception:\n'
-         '            telems, err = [], traceback.format_exc()\n'
-         '        outq.put((ticket, telems, err, (w, os.getpid(), t0, time.time_ns(),\n'
-         '                                        model_name, len(telems))))\n'),
+         '        outq.put(_decode(decoders, msg, w))\n'),
         ('    (identical semantics, zero processes)."""\n',
-         '    (identical semantics, zero processes).\n'
+         '    (identical semantics, zero processes).  A task\'s decoder is keyed by\n'
+         '    its type name (``name``), built from its model (``model_name``).\n'
          '\n'
          '    ``owner`` is the placement table, ``{fz: worker}``: a task is placed\n'
          '    on the least-loaded worker at its first decode, and its state stays\n'
@@ -287,14 +315,36 @@ CHANGED = {
          '        ctx = probe.context()\n'
          '        if ctx is not None:\n'
          '            self._ctx[ticket] = ctx\n'),
-        ('            telems = st[1].decode_bits(bits, soft)\n'
+        ('        if self.workers == 0:\n'
+         '            st = self._decoders.get(fz)\n'
+         '            if st is None or st[0] != model_name:\n'
+         '                st = (model_name, _build_decoder(model_name, kwargs))\n'
+         '                self._decoders[fz] = st\n'
+         '            telems = st[1].decode_bits(bits, soft)\n'
          '            self._inline_results = getattr(self, "_inline_results", {})\n'
          '            self._inline_results[ticket] = telems\n',
-         '            t0 = time.time_ns()\n'
-         '            telems = st[1].decode_bits(bits, soft)\n'
-         '            self._inline_results[ticket] = (\n'
-         '                telems, (None, os.getpid(), t0, time.time_ns(), model_name,\n'
-         '                         len(telems)))\n'),
+         '        msg = ("decode", ticket, fz, name, model_name, kwargs, bits, soft)\n'
+         '        if self.workers == 0:\n'
+         '            _, telems, err, tm = _decode(self._decoders, msg, None)\n'
+         '            if err:\n'
+         '                log.error("frame plane decode error:\\n%s", err)\n'
+         '            self._inline_results[ticket] = (telems, tm)\n'),
+        ('    def decode(self, fz: int, model_name: str, kwargs: dict,\n',
+         '    def decode(self, fz: int, name: str, model_name: str, kwargs: dict,\n'),
+        ('        self._inqs[w].put(\n'
+         '            ("decode", ticket, fz, model_name, kwargs, bits, soft))\n',
+         '        self._inqs[w].put(msg)\n'),
+        ('        # spawn (not fork): the parent owns a live TPU client and\n',
+         '        # spawn (not fork): the parent may hold a CUDA context and\n'),
+        ('This plane is the TPU-native analogue of the reference\'s\n',
+         'This plane is the port\'s analogue of the reference\'s\n'),
+        ('Workers are plain numpy processes — they never touch JAX or the TPU.\n'
+         '``workers=0`` (the default) keeps the fully inline single-process\n'
+         'behavior.\n',
+         'Workers are plain numpy processes: they import no torch and never touch\n'
+         'a device.  ``workers=0`` decodes inline in the calling process, with\n'
+         'the same decoder rules (``_decode``); the station\'s default,\n'
+         '``frame_plane_workers`` -1, sizes the pool from the CPU count.\n'),
         ('                                  args=(q, self._outq), daemon=True)\n',
          '                                  args=(q, self._outq, w), daemon=True)\n'),
         ('            res = getattr(self, "_inline_results", {})\n'
@@ -347,7 +397,7 @@ CHANGED = {
          'two loads by a clear margin — the owner pickles the decoder out and\n'
          'forgets it, the new worker takes it in.  The main process keeps the\n'
          'light parts: telemetry enrichment, filtering and exporter fan-out\n'
-         '(station.py `_decode_frames` tail).\n'),
+         '(station.py ``Station._decode_rows``, the station\'s one fan-out).\n'),
         ('import os\n'
          'import queue as queue_mod\n',
          'import os\n'
@@ -1191,12 +1241,23 @@ CHANGED = {
         ("                    label={\"tpu\": \"this framework\",\n",
          "                    label={\"torch\": \"this port\",\n"),
     ],
-    # no throughput figure of another device in the docstring
+    # no throughput figure of another device in the docstring; the plane's
+    # decode takes the type name beside the model
     "tools/bench_frame_plane.py": [
         ("The demod's per-chip channel count (~900 Msps ≈ 19k 48 kHz channels) is\n"
          "only usable if the host can turn the demodulated bit streams into\n",
          "The demod's channel count is only usable if the host can turn the\n"
          "demodulated bit streams into\n"),
+        ("        for c in range(channels):\n"
+         "            plane.decode(1000 + c, model_name, kwargs, bits, None)\n",
+         "        for c in range(channels):\n"
+         "            plane.decode(1000 + c, sonde_type, model_name, kwargs, bits,\n"
+         "                         None)\n"),
+        ("            for c in range(channels):\n"
+         "                plane.decode(1000 + c, model_name, kwargs, bits, None)\n",
+         "            for c in range(channels):\n"
+         "                plane.decode(1000 + c, sonde_type, model_name, kwargs, bits,\n"
+         "                             None)\n"),
     ],
 }
 

@@ -1,5 +1,6 @@
 """The port's frame-plane worker pool (``station/frame_plane.py``, a copy of
-the JAX package's, and the pooled decode paths of ``Station``) on the CPU.
+the JAX package's, and ``Station._decode_rows``, the station's one decode
+fan-out into it, pooled or inline) on the CPU.
 
 Station level, block by block on the same captures (``tests/
 test_offgrid.py``'s 768 kHz, 16-channel geometry): the port's station
@@ -12,18 +13,23 @@ after every block.
 * A sonde drifting +12 kHz a block with no manual task, on the
   sequential route (``use_mesh: false``, as ``tests/test_offgrid.py``'s
   drift case): every block detects or absorbs it and decodes it through
-  ``decode_channels`` → ``_decode_frames_pooled``, and the task follows
+  ``decode_channels`` → ``_decode_rows``, and the task follows
   the drift, so its decoder state is re-keyed in the worker that owns
   it (``FramePlane.rekey``; the reference's pool drops it where the new
   key hashes to another worker, and the sonde re-locks).
 * Manual RS41 and DFM tasks (the DFM 20 kHz off grid), two blocks of the
-  fused steady step (``_decode_fused``'s pool branch).
+  fused steady step (``_decode_fused``).
 * Manual RS41, DFM, M10 and M20 tasks in one capture, so one gather
   holds four types, with a hand-over after every gather.
+* A station whose ``__main__`` cannot be spawned falls back to the
+  inline plane at its first decode and keeps that block's DFM state.
+The pooled and the inline station keep no decoder in their task state:
+``FramePlane`` holds each task's.
 
-Plane level: the inline plane decodes and keeps decoder state, a worker
-error stays with its ticket, ``drop`` and ``rekey`` reach the worker
-that owns the task.  The placement table puts a task on the
+Plane level: the inline plane decodes and keeps decoder state, a
+decoder's error stays with its ticket (in a worker and inline), a
+task's decoder is rebuilt when its type changes, ``drop`` and ``rekey``
+reach the worker that owns the task.  The placement table puts a task on the
 least-loaded worker by measured cost; ``rekey`` keeps the state with
 its owner and ``drop`` frees the entry; a hand-over is exact for every
 model of ``models.get_model``'s registry; moves and tasks a worker are
@@ -120,8 +126,10 @@ def test_pooled_station_follows_drift_like_inline_and_reference():
     # decoder state moved with it
     assert out["port_pool"][0][1] != out["port_pool"][-1][1]
     assert rekeys and all(a != b for a, b in rekeys)
-    # the pooled station keeps no decoder in the main process
-    assert all(st["decoder"] is None for st in pool.active.values())
+    # the pooled station keeps no decoder in the main process: its
+    # workers hold the task
+    assert all("decoder" not in st for st in pool.active.values())
+    assert set(pool.frame_plane.owner) == set(pool.active)
 
 
 def test_pooled_manual_tasks_match_inline_and_reference():
@@ -135,7 +143,11 @@ def test_pooled_manual_tasks_match_inline_and_reference():
     assert out["port_pool"] == out["port_inline"] == out["ref_pool"]
     types = {k[0] for telems, _ in out["port_pool"] for k in telems}
     assert types == {"RS41", "DFM"}
-    assert all(st["decoder"] is None for st in pool.active.values())
+    assert all("decoder" not in st for st in pool.active.values())
+    assert set(pool.frame_plane.owner) == set(pool.active)
+    inline = stations["port_inline"]
+    assert all("decoder" not in st for st in inline.active.values())
+    assert set(inline.frame_plane._decoders) == set(inline.active)
 
 
 DFM_F = FREQS[4] - 20e3
@@ -185,40 +197,84 @@ def test_pooled_types_in_one_gather_match_inline_and_reference(
     assert sum(pool.stats["pool_decodes"]) == 8
 
 
+def _dfm_capture(i):
+    """Cycles 2i and 2i+1 of a six-cycle DFM flight (one serial half in
+    cycle 2, the other in cycle 3) on channel 4, 20 kHz below its
+    center: the serial is confirmed in the second block by a decoder
+    that kept the first block's half."""
+    flight = encode_flight_bits(sn=21054321, lat=47.9, lon=16.8,
+                                n_cycles=6, time_step=1.0)
+    n = 2 * len(flight) // 6
+    rng = np.random.default_rng(51 + i)
+    bits = np.concatenate([rng.integers(0, 2, 500),
+                           flight[i * n:(i + 1) * n]]).astype(np.uint8)
+    wide = (rng.standard_normal(T_WIDE) + 1j *
+            rng.standard_normal(T_WIDE)).astype(np.complex64) * 0.002
+    sig = taper(gfsk_mod(bits, FS_WIDE, 2500, 2, DFM_F, 5000,
+                         bt=0.5)[:T_WIDE])
+    wide[:len(sig)] += sig
+    return np.stack([wide.real, wide.imag]).astype(np.float32)
+
+
+def test_spawn_fallback_keeps_the_first_blocks_state(monkeypatch,
+                                                      tmp_path):
+    """A pooled station whose ``__main__`` cannot be spawned falls back
+    to the inline plane at its first decode, and that plane keeps the
+    first block's decoder state: a DFM whose serial halves arrive in two
+    blocks is confirmed on the second, as on the inline station."""
+    import __main__
+    monkeypatch.setattr(__main__, "__file__", str(tmp_path / "gone.py"),
+                        raising=False)
+    stations = {m: Station(_cfg(frame_plane_workers=w), exporters=[_Col()],
+                           center_freq_hz=CENTER, device="cpu")
+                for m, w in (("fallback", 2), ("inline", 0))}
+    for st in stations.values():
+        st.start_manual_decoder(CENTER + DFM_F, "DFM")
+    fallback = stations["fallback"]
+    out = _drive(stations, [_dfm_capture(i) for i in range(3)])
+    assert fallback.frame_plane.workers == 0
+    assert fallback.frame_plane._procs == []
+    assert out["fallback"] == out["inline"]
+    assert [bool(telems) for telems, _ in out["inline"]] == \
+        [False, True, True]
+
+
 def test_inline_plane_decodes():
     """workers=0: decode/gather inline, decoder state persists."""
     plane = FramePlane(workers=0)
     bits = encode_flight_bits(n_cycles=3)
-    t1 = plane.decode(400_500_000, "DFM", {}, bits, None)
+    t1 = plane.decode(400_500_000, "DFM", "DFM", {}, bits, None)
     assert plane.gather()[t1], "no telemetry from the inline plane"
-    t2 = plane.decode(400_500_000, "DFM", {}, bits, None)
+    t2 = plane.decode(400_500_000, "DFM", "DFM", {}, bits, None)
     assert plane.gather()[t2]
     plane.rekey(400_500_000, 400_510_000)
     assert list(plane._decoders) == [400_510_000]
     plane.close()
 
 
-def test_pooled_worker_error_isolated():
-    """A decoder that raises in a worker yields [] for its ticket; the
-    other tickets and the plane survive; drop and rekey reach the
-    worker that holds the state."""
-    plane = FramePlane(workers=2)
+@pytest.mark.parametrize("workers", [0, 2])
+def test_pooled_worker_error_isolated(workers):
+    """A decoder that raises, in a worker or inline, yields [] for its
+    ticket; the other tickets and the plane survive; drop and rekey
+    reach the worker that holds the state."""
+    plane = FramePlane(workers=workers)
     try:
         bits = encode_flight_bits(n_cycles=3)
-        bad = plane.decode(400_000_000, "RS41", {"no_such_kwarg": 1},
+        bad = plane.decode(400_000_000, "RS41", "RS41",
+                           {"no_such_kwarg": 1},
                            bits, None)
-        good = plane.decode(400_010_000, "DFM", {}, bits, None)
+        good = plane.decode(400_010_000, "DFM", "DFM", {}, bits, None)
         res = plane.gather()
         assert res[bad] == []
         assert res[good], "good ticket starved by the bad one"
         plane.drop(400_010_000)
-        again = plane.decode(400_010_000, "DFM", {}, bits, None)
+        again = plane.decode(400_010_000, "DFM", "DFM", {}, bits, None)
         assert plane.gather()[again]
         # a rekey moves the state within the worker that owns it,
         # wherever the new key lies; decoding goes on at the new keys
         plane.rekey(400_010_000, 400_010_002)
         plane.rekey(400_010_002, 400_010_003)
-        moved = plane.decode(400_010_003, "DFM", {}, bits, None)
+        moved = plane.decode(400_010_003, "DFM", "DFM", {}, bits, None)
         assert plane.gather()[moved]
         assert all(p.is_alive() for p in plane._procs)
     finally:
@@ -234,8 +290,8 @@ def test_pool_workers_load_no_torch():
     plane = FramePlane(workers=2)
     try:
         bits = encode_flight_bits(n_cycles=3)
-        tickets = [plane.decode(400_000_000 + 10_000 * i, "DFM", {}, bits,
-                                None) for i in range(2)]
+        tickets = [plane.decode(400_000_000 + 10_000 * i, "DFM", "DFM", {},
+                                bits, None) for i in range(2)]
         res = plane.gather()
         assert all(res[t] for t in tickets)
         assert len(plane._procs) == 2
@@ -272,13 +328,37 @@ def _halves(plane, fz, model, kwargs, bits, between=None, fz2=None):
     (default ``fz``); ``between(plane)`` runs after the first half's
     gather."""
     h = len(bits) // 2
-    t = plane.decode(fz, model, kwargs, bits[:h], None)
+    t = plane.decode(fz, model, model, kwargs, bits[:h], None)
     first = plane.gather()[t]
     if between is not None:
         between(plane)
-    t = plane.decode(fz if fz2 is None else fz2, model, kwargs, bits[h:],
-                     None)
+    t = plane.decode(fz if fz2 is None else fz2, model, model, kwargs,
+                     bits[h:], None)
     return first, plane.gather()[t]
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_type_change_rebuilds_the_decoder(workers):
+    """An iMet task whose subtype changes at one frequency (IMET4 and
+    IMET1RS both decode with model IMET) gets a new decoder, pooled and
+    inline alike; the same type keeps its decoder.  Each decode asks for
+    a decoder built with another ``jsn_freq_khz``, which the telemetry
+    shows, so the telemetry names the decoder that ran."""
+    case = per_harness.CASES["IMET4"](2, np.random.default_rng(5), None)
+    bits = np.asarray(case.tx_bits, np.uint8)
+    plane = FramePlane(workers=workers)
+    built = []
+    try:
+        for khz, name in enumerate(("IMET4", "IMET4", "IMET1RS", "IMET1RS",
+                                    "IMET4"), 1):
+            t = plane.decode(F, name, "IMET", {"jsn_freq_khz": khz}, bits,
+                             None)
+            telems = plane.gather()[t]
+            assert telems
+            built.append({x["freq"] for x in telems})
+    finally:
+        plane.close()
+    assert built == [{1}, {1}, {3}, {3}, {5}]
 
 
 def test_placement_by_measured_cost():
@@ -292,13 +372,13 @@ def test_placement_by_measured_cost():
     plane = FramePlane(workers=4)
     try:
         for i in range(4):
-            plane.decode(F + 10_000 * i, "DFM", {}, dfm, None)
+            plane.decode(F + 10_000 * i, "DFM", "DFM", {}, dfm, None)
             plane.gather()
         want = {F + 10_000 * i: i for i in range(4)}
         assert plane.owner == want
         for _ in range(2):
             for i in range(4):
-                plane.decode(F + 10_000 * i, "DFM", {}, dfm, None)
+                plane.decode(F + 10_000 * i, "DFM", "DFM", {}, dfm, None)
             assert all(plane.gather().values())
         assert plane.owner == want and plane.moves == 0
         assert plane.tasks() == [1, 1, 1, 1]
@@ -307,18 +387,18 @@ def test_placement_by_measured_cost():
     rs41, _ = _stream("RS41")
     plane = FramePlane(workers=2)
     try:
-        plane.decode(F, "RS41", {}, rs41, None)
+        plane.decode(F, "RS41", "RS41", {}, rs41, None)
         plane.gather()
-        plane.decode(F + 10_000, "DFM", {}, dfm, None)
+        plane.decode(F + 10_000, "DFM", "DFM", {}, dfm, None)
         plane.gather()
         assert plane.owner == {F: 0, F + 10_000: 1}
         plane._cost.update({F: 100.0, F + 10_000: 5.0})
-        plane.decode(F + 20_000, "DFM", {}, dfm, None)     # costs 5
+        plane.decode(F + 20_000, "DFM", "DFM", {}, dfm, None)     # costs 5
         assert plane.owner[F + 20_000] == 1
-        plane.decode(F + 30_000, "RS41", {}, rs41, None)   # costs 100
+        plane.decode(F + 30_000, "RS41", "RS41", {}, rs41, None)  # costs 100
         assert plane.owner[F + 30_000] == 1
         assert plane._loads()[0] == [100.0, 110.0]
-        plane.decode(F + 40_000, "M10", {}, dfm, None)     # costs 52.5
+        plane.decode(F + 40_000, "M10", "M10", {}, dfm, None)     # costs 52.5
         assert plane.owner[F + 40_000] == 0
         assert plane._loads()[0] == [152.5, 110.0]
         plane.gather()
@@ -336,7 +416,8 @@ def test_rekey_keeps_the_state_with_its_owner():
     try:
         pooled = _halves(plane, F, "MK2LMS", kwargs, bits,
                          lambda p: p.rekey(F, F + 1), F + 1)
-        plane.decode(F + 2, "MK2LMS", kwargs, bits[len(bits) // 2:], None)
+        plane.decode(F + 2, "MK2LMS", "MK2LMS", kwargs,
+                     bits[len(bits) // 2:], None)
         fresh = list(plane.gather().values())[0]
         assert plane.owner == {F + 1: 0, F + 2: 1}
     finally:
@@ -363,7 +444,8 @@ def test_drop_frees_the_entry():
     finally:
         plane.close()
     fresh = FramePlane(workers=0)
-    t = fresh.decode(F, "MK2LMS", kwargs, bits[len(bits) // 2:], None)
+    t = fresh.decode(F, "MK2LMS", "MK2LMS", kwargs, bits[len(bits) // 2:],
+                     None)
     assert first and second == fresh.gather()[t]
 
 
@@ -410,18 +492,18 @@ def test_pool_counts_moves_and_tasks():
     plane = FramePlane(workers=2)
     try:
         for fz in (a, b, c):             # unmeasured: placed by count
-            plane.decode(fz, "DFM", {}, dfm, None)
+            plane.decode(fz, "DFM", "DFM", {}, dfm, None)
         plane.gather()
         assert plane.owner == {a: 0, b: 1, c: 0} and plane.moves == 0
         plane._cost.update({a: 100.0, b: 1.0, c: 100.0})
-        plane.decode(b, "DFM", {}, dfm, None)
+        plane.decode(b, "DFM", "DFM", {}, dfm, None)
         plane.gather()                   # [200, ~1]: a moves
         assert plane.owner == {a: 1, b: 1, c: 0}
         assert plane.moves == 1 and plane.tasks() == [1, 2]
         assert probe.counts().get("pool_moves") == 1
         assert plane._hold == {a: frame_plane.MOVE_HOLD}
         before = list(plane.decodes)
-        t = plane.decode(a, "DFM", {}, dfm, None)
+        t = plane.decode(a, "DFM", "DFM", {}, dfm, None)
         assert plane.gather()[t]
         assert plane.decodes == [before[0], before[1] + 1]
         assert plane.moves == 1

@@ -153,13 +153,13 @@ def test_pool_returns_decode_spans():
     inline = FramePlane(workers=0)
     want = {}
     for fz in fzs:
-        t = inline.decode(fz, "DFM", {}, bits, None)
+        t = inline.decode(fz, "DFM", "DFM", {}, bits, None)
         want[fz] = inline.gather()[t]
     probe.enable_spans()
     plane = FramePlane(workers=2)
     try:
         with probe.block(5), probe.span("test.handover") as hand:
-            tickets = {plane.decode(fz, "DFM", {}, bits, None): fz
+            tickets = {plane.decode(fz, "DFM", "DFM", {}, bits, None): fz
                        for fz in fzs}
             got = plane.gather()
         pids = [p.pid for p in plane._procs]

@@ -11,6 +11,9 @@ at three centers: an RS41, an M20 with an M10, a DFM; 16 channels at
   mesh station's on the same mesh of virtual XLA devices, and the tasks
   are the same types at the same frequencies (to ``RETUNE_HZ`` of the
   reference's: F11, see ``tests/test_torch_station_split.py``).
+- On an (8, 1) mesh with a pool of two frame-plane workers, the routed
+  expert tasks decode in the pool (F24): the telemetry is the inline
+  station's, and the main process holds no decoder.
 - Dispatching block N+1 before collecting block N on a (2, 1) mesh
   gives the telemetry and tasks of the synchronous loop.
 - An explicit one-device mesh takes the fused steady block and decodes
@@ -67,6 +70,22 @@ def test_mesh_station_equals_sequential_and_reference(
     assert sorted(map(_key, got)) == sorted(map(_key, want))
     assert _same_tasks(_tasks(st), _tasks(ref))
     assert st.stats["detections"] == ref.stats["detections"]
+
+
+def test_routed_tasks_decode_in_the_pool(capture_set,  # noqa: F811
+                                         sequential):
+    seq, st_seq = sequential
+    st = Station({**_cfg(), "frame_plane_workers": 2}, device=CPU,
+                 mesh=_mesh(8, 1))
+    try:
+        got = st.process_captures(list(capture_set), list(CENTERS))
+    finally:
+        st.close()
+    assert sorted(map(_key, got)) == sorted(map(_key, seq))
+    assert _tasks(st) == _tasks(st_seq)
+    assert all("decoder" not in s for s in st.active.values())
+    assert set(st.frame_plane.owner) == set(st.active)
+    assert sum(st.stats["pool_decodes"]) == st.stats["decode_rows"] > 0
 
 
 def test_pipelined_dispatch_equals_sync(capture_set):  # noqa: F811
